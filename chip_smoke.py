@@ -15,7 +15,24 @@ Phases, each of which raises on failure (exit status non-zero):
      maximal match, and the run must have launched the kernel;
   4. a ~200 kbp multi-FASTA pair with N runs through ``-b``, ``-b -mum`` and
      ``-b -mam``: the listing bytes on ``-device cuda`` and ``-device cpu``
-     must be identical.
+     must be identical;
+  5. the default engine (seed: K-mer frontend, sparse seeding, endpoint
+     extension), through the CLI without ``-engine``, on ``-device cuda``,
+     at the bench's sizes, each listing holding exactly the JAX package's
+     count (BENCH_DETAIL.json):
+     5a. the headline pair at ``-l 20``: 59,101 MEMs, exact and maximal,
+         byte-identical to phase 3's scan listing;
+     5b. the same pair with ``-mam -l 20``: 59,083;
+     5c. ``strain_pair(40_000_000, ...)`` (same seed and rates) at
+         ``-l 50``: 286,645, exact and maximal (the chr21-scale stand-in);
+     5d. the headline reference against 10 strains
+         ``mutate(ref, 0.01 + 0.001 j, 0.001, seed=100 + j)`` as one
+         multi-FASTA query at ``-l 30``: 478,358;
+     5e. phase 4's input through ``-b``, ``-b -mum`` and ``-b -mam``: GPU
+         bytes == CPU bytes.
+     5a-5d print the plan (K, stride, frontend, rounds), index build and
+     query seconds, each stage's device-synchronised seconds (the CLI's
+     ``-v`` line) and peak device memory.
 Prints the card and its power limit (nvidia-smi), a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -37,6 +54,13 @@ HEADLINE = dict(n=5_000_000, seed=20260816, sub_rate=0.015,
                 indel_rate=0.0015)
 HEADLINE_L = 20
 HEADLINE_MATCHES = 59_101        # BENCH_DETAIL.json headline_5mbp_l20.matches
+MAM_MATCHES = 59_083             # config3_mam_l20.matches
+CHR21 = dict(HEADLINE, n=40_000_000)
+CHR21_L = 50
+CHR21_MATCHES = 286_645          # chr21_40mbp_l50.matches
+STRAINS = 10
+STRAINS_L = 30
+STRAINS_MATCHES = 478_358        # config2_10strains_l30.matches
 RANDOM_QUERIES = 1 << 22         # 4,194,304 random occ queries
 ROW_BYTES = 512                  # one interleaved table row per query
 
@@ -133,6 +157,53 @@ def _cli(main, argv: list[str]) -> str:
     return err.getvalue()
 
 
+def _verbose_stats(stderr: str) -> dict:
+    """The CLI's ``-v`` lines: index build s, query s, Mbp/s, and the plan
+    and stage seconds of its (one) engine call."""
+    head = re.search(r"index build: ([0-9.]+)s; query: ([0-9.]+) Mbp in "
+                     r"([0-9.]+)s \(([0-9.]+) Mbp/s\)", stderr)
+    search = re.search(r"search: (.*); stage s: (.*)", stderr)
+    if head is None or search is None:
+        raise AssertionError(f"no statistics lines in {stderr!r}")
+    return {"build_s": float(head.group(1)), "query_s": float(head.group(3)),
+            "mbp_per_s": float(head.group(4)),
+            "plan": dict(re.findall(r"(\w+)=(\S+)", search.group(1))),
+            "stage_s": {k: float(v) for k, v in
+                        re.findall(r"(\w+)=([0-9.]+)", search.group(2))}}
+
+
+def _seed_phase(cli_main, label: str, flags: list[str], want: int, rp: str,
+                qp: str, out: str) -> dict:
+    """One default-engine CLI run on the card: count, plan, stage times,
+    peak device memory. Raises if the count is not ``want``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stderr = _cli(cli_main, [*flags, "-device", "cuda", "-v", "-o", out, rp,
+                             qp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = _verbose_stats(stderr)
+    st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    st["matches"] = len(_listing_matches(out))
+    st["wall_s"] = wall
+    # what the engine's stages leave of the query: mode filter, emission
+    st["host_tail_s"] = st["query_s"] - sum(st["stage_s"].values())
+    plan = " ".join(f"{k}={v}" for k, v in st["plan"].items())
+    stages = " ".join(f"{k} {v:.6f}" for k, v in st["stage_s"].items())
+    _log(f"[seed {label}] {' '.join(flags)}: {st['matches']} matches; "
+         f"plan {plan}; index build {st['build_s']:.3f} s, query "
+         f"{st['query_s']:.3f} s ({st['mbp_per_s']:.2f} Mbp/s); stage s: "
+         f"{stages}, host tail {st['host_tail_s']:.6f}; CLI wall "
+         f"{wall:.3f} s; peak device memory {st['peak_gib']:.3f} GiB")
+    if st["matches"] != want:
+        raise AssertionError(f"seed {label}: {st['matches']} matches, "
+                             f"expected {want}")
+    return st
+
+
 def run() -> int:
     import torch
 
@@ -219,7 +290,7 @@ def run() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # 3. the scan slice end to end at the headline input
         rp, qp, out = (os.path.join(tmp, f) for f in
-                       ("ref.fa", "qry.fa", "out.txt"))
+                       ("ref.fa", "qry.fa", "scan.txt"))
         write_fasta(rp, [Sequence("ref", ref)])
         write_fasta(qp, [Sequence("qry", qry)])
         torch.cuda.reset_peak_memory_stats()
@@ -231,14 +302,11 @@ def run() -> int:
         wall = time.perf_counter() - t0
         launches = rank.rank_rows.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        stats = re.search(r"index build: ([0-9.]+)s; query: ([0-9.]+) Mbp in "
-                          r"([0-9.]+)s \(([0-9.]+) Mbp/s\)", stderr)
-        if stats is None:
-            raise AssertionError(f"no statistics line in {stderr!r}")
+        stats = _verbose_stats(stderr)
         matches = _listing_matches(out)
         _log(f"[slice] 5 Mbp scan -l {HEADLINE_L}: {len(matches)} matches; "
-             f"index build {stats.group(1)} s, query {stats.group(3)} s "
-             f"({stats.group(4)} Mbp/s), CLI wall {wall:.3f} s; rank "
+             f"index build {stats['build_s']} s, query {stats['query_s']} s "
+             f"({stats['mbp_per_s']} Mbp/s), CLI wall {wall:.3f} s; rank "
              f"kernel launches {launches}; peak device memory "
              f"{peak_gib:.3f} GiB")
         if len(matches) != HEADLINE_MATCHES:
@@ -261,20 +329,61 @@ def run() -> int:
         rp2, qp2 = os.path.join(tmp, "ref2.fa"), os.path.join(tmp, "qry2.fa")
         write_fasta(rp2, [Sequence(f"chr{i}", s) for i, s in enumerate(refs)])
         write_fasta(qp2, [Sequence(f"read{i}", s) for i, s in enumerate(qrys)])
-        for mode in ([], ["-mum"], ["-mam"]):
-            texts = {}
-            for dev in ("cuda", "cpu"):
-                o = os.path.join(tmp, f"out_{dev}.txt")
-                _cli(cli_main, ["-engine", "scan", "-b", "-l", "20", *mode,
-                                "-device", dev, "-o", o, rp2, qp2])
-                texts[dev] = Path(o).read_bytes()
-            nm = len(_listing_matches(os.path.join(tmp, "out_cpu.txt")))
-            if texts["cuda"] != texts["cpu"] or nm == 0:
-                raise AssertionError(f"-b {' '.join(mode)}: GPU and CPU "
-                                     f"listings differ or are empty ({nm})")
-            _log(f"[bytes] -b {' '.join(mode) or '-mem'}: {nm} matches, "
-                 f"{len(texts['cpu'])} bytes, GPU == CPU")
+        bytes_cpu = {}
+        for engine in (["-engine", "scan"], []):     # 4. scan; 5e. seed
+            for mode in ([], ["-mum"], ["-mam"]):
+                texts = {}
+                for dev in ("cuda", "cpu"):
+                    o = os.path.join(tmp, f"out_{dev}.txt")
+                    _cli(cli_main, [*engine, "-b", "-l", "20", *mode,
+                                    "-device", dev, "-o", o, rp2, qp2])
+                    texts[dev] = Path(o).read_bytes()
+                nm = len(_listing_matches(os.path.join(tmp, "out_cpu.txt")))
+                if texts["cuda"] != texts["cpu"] or nm == 0:
+                    raise AssertionError(
+                        f"{' '.join(engine) or 'seed'} -b {' '.join(mode)}: "
+                        f"GPU and CPU listings differ or are empty ({nm})")
+                _log(f"[bytes] {' '.join(engine) or 'default engine (seed)'}"
+                     f" -b {' '.join(mode) or '-mem'}: {nm} matches, "
+                     f"{len(texts['cpu'])} bytes, GPU == CPU")
+                bytes_cpu.setdefault(tuple(mode), []).append(texts["cpu"])
+        for mode, (scan_b, seed_b) in bytes_cpu.items():
+            if scan_b != seed_b:
+                raise AssertionError(f"-b {' '.join(mode)}: seed listing != "
+                                     "scan listing")
+        _log("[bytes] seed listings == scan listings (-b, -mum, -mam)")
+
+        # 5a-5d. the default engine at the bench's sizes
+        seed_out = os.path.join(tmp, "seed.txt")
+        seed = {"5a": _seed_phase(cli_main, "5a", ["-l", str(HEADLINE_L)],
+                                  HEADLINE_MATCHES, rp, qp, seed_out)}
+        if Path(seed_out).read_bytes() != Path(out).read_bytes():
+            raise AssertionError("5a: seed listing != phase 3's scan listing")
+        _check_maximal(ref, qry, _listing_matches(seed_out))
+        _log("[seed 5a] listing == scan listing; every match exact and "
+             "maximal")
+        seed["5b"] = _seed_phase(cli_main, "5b", ["-mam", "-l",
+                                                  str(HEADLINE_L)],
+                                 MAM_MATCHES, rp, qp, seed_out)
+        strains = [Sequence(f"strain{j}", synth.mutate(
+            ref, 0.01 + 0.001 * j, 0.001, seed=100 + j))
+            for j in range(STRAINS)]
+        qp3 = os.path.join(tmp, "strains.fa")
+        write_fasta(qp3, strains)
+        del strains
+        seed["5d"] = _seed_phase(cli_main, "5d", ["-l", str(STRAINS_L)],
+                                 STRAINS_MATCHES, rp, qp3, seed_out)
+        ref, qry = synth.strain_pair(CHR21["n"], seed=CHR21["seed"],
+                                     sub_rate=CHR21["sub_rate"],
+                                     indel_rate=CHR21["indel_rate"])
+        write_fasta(rp, [Sequence("ref", ref)])
+        write_fasta(qp, [Sequence("qry", qry)])
+        seed["5c"] = _seed_phase(cli_main, "5c", ["-l", str(CHR21_L)],
+                                 CHR21_MATCHES, rp, qp, seed_out)
+        _check_maximal(ref, qry, _listing_matches(seed_out))
+        _log("[seed 5c] every match exact and maximal")
         torch.cuda.synchronize()
+        _log("[seed] " + json.dumps(seed, sort_keys=True))
 
     _log(f"[rank] 4M random queries: kernel {big['ms']:.6f} ms "
          f"({big['gb_per_s']:.2f} GB/s) vs plain {big['plain_ms']:.6f} ms; "

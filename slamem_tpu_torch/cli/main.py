@@ -3,12 +3,12 @@
 
     slamem-tpu-torch [-mem|-mum|-mam] [-l <minlen>] [-o <outfile>] [-b]
                      [-save <index.npz>] [-load <index.npz>]
-                     [-engine scan] [-device cuda|cpu] [-v]
+                     [-engine seed|scan] [-device cuda|cpu] [-v]
                      <reference.fasta> <query.fasta> [more...]
 
-The options the port does not run yet (-engine seed, -shard, -slabs, -plot)
-are parsed as in the JAX package and then refused with exit status 2 and the
-ROADMAP item that will bring them.
+The options the port does not run yet (-shard, -slabs, -plot) are parsed as
+in the JAX package and then refused with exit status 2 and the ROADMAP item
+that will bring them.
 """
 
 from __future__ import annotations
@@ -34,16 +34,15 @@ Options:
   -b            also search the reverse-complement strand
   -save <file>  save the built index (npz) and exit if no query given
   -load <file>  load a previously saved index instead of rebuilding
-  -engine <e>   query engine: seed (default; not ported yet) or scan
+  -engine <e>   query engine: seed (default) or scan
   -device <d>   cuda (default) or cpu; cuda without a card is an error
   -sparse <s>   sparse seeding for the seed engine: auto (default) or off
   -v            verbose statistics
-Not ported yet (exit status 2): -engine seed, -shard, -slabs <n>, -plot <file>
+Not ported yet (exit status 2): -shard, -slabs <n>, -plot <file>
 """
 
 # option -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "-engine seed": "ROADMAP A3: seed frontend and fused tail",
     "-plot": "ROADMAP A6: -plot",
     "-shard": "ROADMAP A8: index sharding",
     "-slabs": "ROADMAP A8: index sharding",
@@ -149,10 +148,9 @@ def parse_args(argv: list[str]) -> tuple[Config, str, list[str], dict]:
     return cfg, paths[0], paths[1:], extras
 
 
-def _not_ported(cfg: Config, has_queries: bool) -> str | None:
+def _not_ported(cfg: Config) -> str | None:
     """The first requested option the port cannot run yet, as a message."""
-    for opt, asked in (("-engine seed", cfg.engine == "seed" and has_queries),
-                       ("-plot", cfg.dotplot_path is not None),
+    for opt, asked in (("-plot", cfg.dotplot_path is not None),
                        ("-shard", cfg.shard_index),
                        ("-slabs", cfg.shard_slabs is not None)):
         if asked:
@@ -174,7 +172,7 @@ def main(argv: list[str] | None = None) -> int:
     except CliError as e:
         print(str(e), file=sys.stderr)
         return 2
-    refused = _not_ported(cfg, bool(query_paths))
+    refused = _not_ported(cfg)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
@@ -251,6 +249,15 @@ def main(argv: list[str] | None = None) -> int:
               f"({s['query_mbp_per_s']:.2f} Mbp/s); "
               f"matches: {s['matches']}; device: {s['device']}",
               file=sys.stderr)
+        # one line per engine call: its plan and device-synchronised stage
+        # times (the scan engine's frontend is the scan itself)
+        for st in s["searches"]:
+            stages = " ".join(f"{name}={sec:.6f}"
+                              for name, sec in st["stage_s"].items())
+            print(f"search: k={st['k']} stride={st['stride']} "
+                  f"frontend={st.get('frontend', 'scan')} "
+                  f"rounds={st['rounds']} pairs={st['pairs']}; "
+                  f"stage s: {stages}", file=sys.stderr)
     return 0
 
 

@@ -2,8 +2,8 @@
 ``slamem_tpu/engine/run.py``).
 
 Load reference → build index → for each query sequence (and strand with -b)
-→ search → filter → report. The scan engine is ported; the seed engine is
-not yet (ROADMAP A3).
+→ search → filter → report, with the search itself delegated to the seed
+engine (the default) or the scan engine (``Config.engine``).
 """
 
 from __future__ import annotations
@@ -46,12 +46,10 @@ class EngineOutput:
 
 def _search_one(index: FMIndex, qcodes: np.ndarray,
                 cfg: Config) -> seed_mode.SeedMatches:
+    if cfg.engine == "seed":
+        return seed_mode.find_seed_matches(index, qcodes, cfg)
     if cfg.engine == "scan":
         return scan_mode.find_scan_matches(index, qcodes, cfg)
-    if cfg.engine == "seed":
-        raise NotImplementedError(
-            "the seed engine is not ported yet (ROADMAP A3: seed frontend "
-            "and fused tail); use engine='scan'")
     raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
@@ -73,6 +71,7 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
     t_build = time.perf_counter() - t0
 
     per_query: list[QueryMatches] = []
+    searches: list[dict] = []   # stats of each engine call
     total = 0
     qbp = 0
     t1 = time.perf_counter()
@@ -110,6 +109,7 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
         qtext, qstarts = joined.with_separators()
         qbp += int(query_set.lengths.sum()) * len(strands)
         m = _search_one(index, qtext, cfg)
+        searches.append(m.stats)
         entry_of_match = np.searchsorted(qstarts, m.qpos, side="right") - 1
         for e, (qi, rev) in enumerate(entries):  # ref emission order
             sel = entry_of_match == e
@@ -120,9 +120,9 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
         for qi in range(query_set.num_seqs):
             qcodes = query_set.sequence(qi).codes
             qbp += len(qcodes)
-            m = seed_mode.apply_mode_filter(_search_one(index, qcodes, cfg),
-                                            cfg)
-            _emit(qi, False, m, 0)
+            m = _search_one(index, qcodes, cfg)
+            searches.append(m.stats)
+            _emit(qi, False, seed_mode.apply_mode_filter(m, cfg), 0)
     synchronize(dev)
     t_query = time.perf_counter() - t1
     stats = {
@@ -132,6 +132,7 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
         "matches": total,
         "query_mbp_per_s": (qbp / 1e6) / t_query if t_query > 0 else 0.0,
         "device": str(dev),
+        "searches": searches,
     }
     return EngineOutput(ref_names=ref_set.names, per_query=per_query,
                         stats=stats)

@@ -160,8 +160,10 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray,
                       cfg: Config) -> seed_mode.SeedMatches:
     """Scan frontend + shared pair/run backend (see seed_mode)."""
     L = cfg.min_length
+    clock = seed_mode.StageClock(index.device)
     # N-padding: no spurious intervals
     qp, qt = seed_mode.query_to_device(query_text, index.device)
+    clock.mark("upload")
     m = int(qp.shape[0])
     C = _SCAN_CHUNK
     los, ws = [], []
@@ -173,5 +175,7 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray,
         ws.append(w_c[:take])
     lo = torch.cat(los)
     width = torch.cat(ws)
+    clock.mark("frontend")
     # FM hits never touch specials: the plain SA is the all-valid view
-    return seed_mode.pairs_to_matches(index, lo, width, L, m, cfg, index.sa)
+    return seed_mode.pairs_to_matches(index, lo, width, L, m, cfg, index.sa,
+                                      clock=clock)

@@ -40,8 +40,9 @@ class FMIndex:
     occ_ckpt: torch.Tensor  # (n_blocks+1, 4) int32: per-char counts in bwt[:b*B]
     counts: torch.Tensor    # (4,) int32: C[c] = #suffixes starting with sym < c
     occ_block: int          # checkpoint spacing B
-    # tables derived from the index (LCP pyramid, interleaved rank rows),
-    # built once on first use by the engines that need them
+    # tables derived from the index (LCP pyramid, interleaved rank rows,
+    # seed / bucket / extension tables), built once on first use by the
+    # engines that need them
     derived: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
 

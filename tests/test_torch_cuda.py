@@ -1,5 +1,5 @@
-"""Port on the card: the CUDA rank kernel and the scan slice on a CUDA
-device, against their plain versions on the same inputs.
+"""Port on the card: the CUDA rank kernel, and the scan and seed engines on
+a CUDA device, against their plain versions / CPU runs on the same inputs.
 
 These tests need a CUDA card (marker ``cuda``) and skip without one. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from slamem_tpu_torch.cli.main import main
 from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
+from slamem_tpu_torch.engine.seed_mode import find_seed_matches
 from slamem_tpu_torch.index.build import build_index, rank_batch
+from slamem_tpu_torch.io.fasta import Sequence, write_fasta
 from slamem_tpu_torch.kernels import rank
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
 
@@ -58,3 +61,40 @@ def test_scan_slice_cuda_equals_cpu(cuda):
     for f in ("refpos", "qpos", "length"):
         assert np.array_equal(getattr(got, f), getattr(want, f))
     assert got.length.size > 0
+
+
+@pytest.mark.parametrize("fields", [dict(min_length=20),
+                                    dict(min_length=50),
+                                    dict(min_length=20, frontend="join"),
+                                    dict(min_length=20, pair_capacity=256)])
+def test_seed_engine_cuda_equals_cpu(cuda, fields):
+    """Every seed stage on the card (bucket or join frontend, span filter at
+    -l 50, several rounds) gives the CPU run's matches."""
+    ref = with_n_runs(random_genome(200_000, seed=153), 3, 40, seed=154)
+    qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=155), 2, 30, seed=156)
+    cfg = Config(**fields)
+    got = find_seed_matches(build_index(ref, device=cuda), qry, cfg)
+    want = find_seed_matches(build_index(ref, device="cpu"), qry, cfg)
+    for f in ("refpos", "qpos", "length"):
+        assert np.array_equal(getattr(got, f), getattr(want, f))
+    assert got.length.size > 0
+    assert {k: got.stats[k] for k in ("pairs", "k", "stride", "rounds",
+                                      "frontend")} == {
+        k: want.stats[k] for k in ("pairs", "k", "stride", "rounds",
+                                   "frontend")}
+
+
+def test_cli_save_load_on_cuda(cuda, tmp_path):
+    """-save and -load on the card: an index loaded for "-device cuda"
+    (its tensors on cuda:0) is on the device the run asked for."""
+    ref = random_genome(20_000, seed=157)
+    rp, qp = str(tmp_path / "r.fa"), str(tmp_path / "q.fa")
+    write_fasta(rp, [Sequence("r", ref)])
+    write_fasta(qp, [Sequence("q", mutate(ref, 0.01, 0.001, seed=158))])
+    npz = str(tmp_path / "i.npz")
+    outs = []
+    for extra in ([], ["-save", npz], ["-load", npz]):
+        o = str(tmp_path / f"o{len(outs)}.txt")
+        assert main([*extra, "-device", "cuda", "-o", o, rp, qp]) == 0
+        outs.append(open(o, "rb").read())
+    assert outs[0] == outs[1] == outs[2] and outs[0].count(b"\n") > 1

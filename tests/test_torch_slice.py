@@ -1,10 +1,11 @@
-"""The port's slice end to end: FASTA -> index -> scan engine -> listing.
+"""The port end to end: FASTA -> index -> seed or scan engine -> listing.
 
-The port's CLI (``-engine scan -device cpu``) and the JAX package's CLI
-(``-engine scan``) read the same FASTA files (made with numpy from seeds).
-Tolerance: exact — the listing bytes must be identical; one case is also
-held to the brute-force oracle's match set. The first step, FASTA reading,
-must give the JAX reader's names, extents and codes exactly.
+The port's CLI (``-device cpu``) and the JAX package's CLI read the same
+FASTA files (made with numpy from seeds), through the default (seed) engine
+or both with ``-engine scan``. Tolerance: exact — the listing bytes must be
+identical; one case of each engine is also held to the brute-force
+oracle's match set. The first step, FASTA reading, must give the JAX
+reader's names, extents and codes exactly.
 """
 
 import gzip
@@ -98,13 +99,20 @@ def test_fasta_rejects_what_jax_rejects(buf, tmp_path):
         read_fasta(path)
 
 
+SCAN = ["-engine", "scan"]
 CASES = {
-    "single_l15": ("single", ["-l", "15"]),
-    "n_runs_l12": ("n_runs", ["-l", "12"]),
-    "multi_b": ("multi", ["-b", "-l", "14"]),
-    "multi_b_mum": ("multi", ["-b", "-mum", "-l", "14"]),
-    "multi_b_mam": ("multi", ["-b", "-mam", "-l", "14"]),
-    "single_mum": ("single", ["-mum", "-l", "16"]),
+    "single_l15": ("single", [*SCAN, "-l", "15"]),
+    "n_runs_l12": ("n_runs", [*SCAN, "-l", "12"]),
+    "multi_b": ("multi", [*SCAN, "-b", "-l", "14"]),
+    "multi_b_mum": ("multi", [*SCAN, "-b", "-mum", "-l", "14"]),
+    "multi_b_mam": ("multi", [*SCAN, "-b", "-mam", "-l", "14"]),
+    "single_mum": ("single", [*SCAN, "-mum", "-l", "16"]),
+    # the default engine (seed), no -engine flag on either CLI
+    "default_single_l20": ("single", ["-l", "20"]),
+    "default_n_runs_l12": ("n_runs", ["-l", "12"]),
+    "default_multi_b": ("multi", ["-b", "-l", "14"]),
+    "default_multi_b_mum": ("multi", ["-b", "-mum", "-l", "14"]),
+    "default_multi_b_mam": ("multi", ["-b", "-mam", "-l", "14"]),
 }
 
 
@@ -113,24 +121,31 @@ def test_cli_listing_bytes_equal_jax(inputs, case, tmp_path):
     which, flags = CASES[case]
     ref, qry = inputs[which]
     jout, tout = str(tmp_path / "jax.txt"), str(tmp_path / "torch.txt")
-    assert jax_main(["-engine", "scan", *flags, "-o", jout, ref, qry]) == 0
-    assert main(["-engine", "scan", "-device", "cpu", *flags, "-o", tout,
-                 ref, qry]) == 0
+    assert jax_main([*flags, "-o", jout, ref, qry]) == 0
+    assert main([*flags, "-device", "cpu", "-o", tout, ref, qry]) == 0
     want = open(jout, "rb").read()
     assert open(tout, "rb").read() == want
     assert want.count(b"\n") > want.count(b">") + 2  # matches were listed
 
 
-def test_cli_matches_oracle(inputs, tmp_path):
+def _oracle_check(inputs, tmp_path, flags):
     ref, qry = inputs["n_runs"]
     out = str(tmp_path / "o.txt")
-    assert main(["-engine", "scan", "-device", "cpu", "-l", "13", "-o", out,
+    assert main([*flags, "-device", "cpu", "-l", "13", "-o", out,
                  ref, qry]) == 0
     got = sorted(tuple(int(x) - (i < 2) for i, x in enumerate(line.split()))
                  for line in open(out) if not line.startswith(">"))
     want = sorted(oracle_matches(read_fasta(ref).codes,
                                  read_fasta(qry).codes, 13, "mem"))
     assert got == want and len(want) > 0
+
+
+def test_cli_matches_oracle(inputs, tmp_path):
+    _oracle_check(inputs, tmp_path, SCAN)
+
+
+def test_cli_default_engine_matches_oracle(inputs, tmp_path):
+    _oracle_check(inputs, tmp_path, [])
 
 
 def test_save_load_both_packages(inputs, tmp_path):
@@ -155,8 +170,8 @@ def test_save_load_both_packages(inputs, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    [],                                  # default engine: seed
-    ["-engine", "seed"],
+    ["-shard"],                          # default engine: seed
+    ["-plot", "x.bmp"],
     ["-engine", "scan", "-shard"],
     ["-engine", "scan", "-slabs", "2"],
     ["-engine", "scan", "-plot", "x.bmp"],
@@ -187,14 +202,16 @@ def test_cuda_without_a_card_raises(inputs, monkeypatch):
 
 
 def test_port_imports_no_jax(inputs, tmp_path):
-    """The port's CLI, run end to end, leaves jax and slamem_tpu out of
-    sys.modules."""
+    """The port's CLI, run end to end through both engines, leaves jax and
+    slamem_tpu out of sys.modules."""
     ref, qry = inputs["single"]
     code = (
         "import sys\n"
         "from slamem_tpu_torch.cli.main import main\n"
         f"assert main(['-engine', 'scan', '-device', 'cpu', '-l', '15', "
         f"'-o', {str(tmp_path / 'o.txt')!r}, {ref!r}, {qry!r}]) == 0\n"
+        f"assert main(['-device', 'cpu', '-l', '15', '-o', "
+        f"{str(tmp_path / 's.txt')!r}, {ref!r}, {qry!r}]) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'slamem_tpu' or "
         "m.startswith('slamem_tpu.')]\n"
@@ -205,6 +222,7 @@ def test_port_imports_no_jax(inputs, tmp_path):
                           env=dict(os.environ, PYTHONPATH=REPO,
                                    OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
+    assert open(tmp_path / "o.txt").read() == open(tmp_path / "s.txt").read()
     assert open(tmp_path / "o.txt").read().count("\n") > 1
 
 
