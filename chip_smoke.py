@@ -32,7 +32,23 @@ Phases, each of which raises on failure (exit status non-zero):
          bytes == CPU bytes.
      5a-5d print the plan (K, stride, frontend, rounds), index build and
      query seconds, each stage's device-synchronised seconds (the CLI's
-     ``-v`` line) and peak device memory.
+     ``-v`` line) and peak device memory;
+  6. BASELINE config #5 (the bench's chr1-scale pair: reference
+     ``strain_pair(250_000_000, seed=20260816, sub_rate=0.03,
+     indel_rate=0.003)``, query its strain's first 50,000,000 codes) at
+     ``-l 50`` on ``-device cuda``, each listing holding exactly the JAX
+     package's 307,706 MEMs (BENCH_DETAIL.json chr1_250mbp_l50 and
+     chr1_sharded_250mbp_l50):
+     6a. the default call (replicated index), every match exact and
+         maximal;
+     6b. ``-shard -slabs 8`` (the 8-slab program on the one card):
+         listing bytes == 6a's;
+     6c. phase 4's input through ``-shard -slabs 3 -b``, ``-b -mum`` and
+         ``-b -mam``: GPU bytes == CPU bytes == the default call's bytes
+         (5e), and ``-shard -b`` alone == the default call.
+     6a and 6b print the plan (K, stride, slabs, shift, probes, R, rounds,
+     pairs), index build and query seconds, stage seconds, peak device
+     memory and the card's name and power limit.
 Prints the card and its power limit (nvidia-smi), a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -61,6 +77,11 @@ CHR21_MATCHES = 286_645          # chr21_40mbp_l50.matches
 STRAINS = 10
 STRAINS_L = 30
 STRAINS_MATCHES = 478_358        # config2_10strains_l30.matches
+CHR1 = dict(HEADLINE, n=250_000_000, sub_rate=0.03, indel_rate=0.003)
+CHR1_QUERY_BP = 50_000_000
+CHR1_L = 50
+CHR1_SLABS = 8
+CHR1_MATCHES = 307_706           # chr1_250mbp_l50.matches (== sharded)
 RANDOM_QUERIES = 1 << 22         # 4,194,304 random occ queries
 ROW_BYTES = 512                  # one interleaved table row per query
 
@@ -384,6 +405,50 @@ def run() -> int:
         _log("[seed 5c] every match exact and maximal")
         torch.cuda.synchronize()
         _log("[seed] " + json.dumps(seed, sort_keys=True))
+
+        # 6c. the virtual-slab program at 200 kbp: GPU == CPU == default
+        for mode in ([], ["-mum"], ["-mam"]):
+            texts = {}
+            for dev in ("cuda", "cpu"):
+                o = os.path.join(tmp, f"out_{dev}.txt")
+                _cli(cli_main, ["-shard", "-slabs", "3", "-b", "-l", "20",
+                                *mode, "-device", dev, "-o", o, rp2, qp2])
+                texts[dev] = Path(o).read_bytes()
+            if not texts["cuda"] == texts["cpu"] == bytes_cpu[tuple(mode)][1]:
+                raise AssertionError(f"-shard -slabs 3 -b {' '.join(mode)}: "
+                                     "GPU, CPU and default listings differ")
+            _log(f"[shard 6c] -shard -slabs 3 -b {' '.join(mode) or '-mem'}"
+                 f": {len(texts['cpu'])} bytes, GPU == CPU == default call")
+        o = os.path.join(tmp, "out_shard.txt")
+        _cli(cli_main, ["-shard", "-b", "-l", "20", "-device", "cuda", "-o",
+                        o, rp2, qp2])
+        if Path(o).read_bytes() != bytes_cpu[()][1]:
+            raise AssertionError("-shard -b: listing != the default call's")
+        _log("[shard 6c] -shard -b (one slab: replicated) == default call")
+
+        # 6a, 6b. BASELINE config #5 at the JAX bench's size
+        t0 = time.perf_counter()
+        ref, qry = synth.strain_pair(CHR1["n"], seed=CHR1["seed"],
+                                     sub_rate=CHR1["sub_rate"],
+                                     indel_rate=CHR1["indel_rate"])
+        qry = qry[:CHR1_QUERY_BP]
+        write_fasta(rp, [Sequence("ref", ref)])
+        write_fasta(qp, [Sequence("qry", qry)])
+        _log(f"[chr1] inputs {len(ref)} + {len(qry)} bp made and written in "
+             f"{time.perf_counter() - t0:.3f} s")
+        _log(smi)
+        chr1 = {"6a": _seed_phase(cli_main, "6a", ["-l", str(CHR1_L)],
+                                  CHR1_MATCHES, rp, qp, seed_out)}
+        _check_maximal(ref, qry, _listing_matches(seed_out))
+        _log("[chr1 6a] every match exact and maximal")
+        shard_out = os.path.join(tmp, "shard.txt")
+        chr1["6b"] = _seed_phase(
+            cli_main, "6b", ["-shard", "-slabs", str(CHR1_SLABS), "-l",
+                             str(CHR1_L)], CHR1_MATCHES, rp, qp, shard_out)
+        if Path(shard_out).read_bytes() != Path(seed_out).read_bytes():
+            raise AssertionError("6b: -shard -slabs listing != 6a's")
+        _log(f"[chr1 6b] {CHR1_SLABS}-slab listing == replicated listing")
+        _log("[chr1] " + json.dumps(chr1, sort_keys=True))
 
     _log(f"[rank] 4M random queries: kernel {big['ms']:.6f} ms "
          f"({big['gb_per_s']:.2f} GB/s) vs plain {big['plain_ms']:.6f} ms; "

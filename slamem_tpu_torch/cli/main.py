@@ -2,13 +2,15 @@
 ``slamem_tpu/cli/main.py`` plus ``-device``).
 
     slamem-tpu-torch [-mem|-mum|-mam] [-l <minlen>] [-o <outfile>] [-b]
-                     [-save <index.npz>] [-load <index.npz>]
-                     [-engine seed|scan] [-device cuda|cpu] [-v]
+                     [-plot <image.bmp>] [-save <index.npz>]
+                     [-load <index.npz>] [-engine seed|scan]
+                     [-shard] [-slabs <n>] [-device cuda|cpu] [-v]
                      <reference.fasta> <query.fasta> [more...]
 
-The options the port does not run yet (-shard, -slabs, -plot) are parsed as
-in the JAX package and then refused with exit status 2 and the ROADMAP item
-that will bring them.
+On one device ``-shard -slabs n`` (n > 1) runs the n-slab program
+(dist/sharded.py virtual slabs); ``-shard`` alone and ``-slabs`` without
+``-shard`` run the replicated engine, as the JAX package's CLI does there.
+The multi-device mesh is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -32,21 +34,17 @@ Options:
   -l <n>        minimum match length (default 20)
   -o <file>     output file (default: derived from query file name)
   -b            also search the reverse-complement strand
+  -plot <file>  write a BMP dot-plot of the matches
   -save <file>  save the built index (npz) and exit if no query given
   -load <file>  load a previously saved index instead of rebuilding
   -engine <e>   query engine: seed (default) or scan
+  -shard        shard the index by SA-rank range (BASELINE config #5)
+  -slabs <n>    slab count for -shard; n > 1 runs the n-slab program on
+                the one device
   -device <d>   cuda (default) or cpu; cuda without a card is an error
   -sparse <s>   sparse seeding for the seed engine: auto (default) or off
   -v            verbose statistics
-Not ported yet (exit status 2): -shard, -slabs <n>, -plot <file>
 """
-
-# option -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "-plot": "ROADMAP A6: -plot",
-    "-shard": "ROADMAP A8: index sharding",
-    "-slabs": "ROADMAP A8: index sharding",
-}
 
 
 def parse_args(argv: list[str]) -> tuple[Config, str, list[str], dict]:
@@ -148,16 +146,6 @@ def parse_args(argv: list[str]) -> tuple[Config, str, list[str], dict]:
     return cfg, paths[0], paths[1:], extras
 
 
-def _not_ported(cfg: Config) -> str | None:
-    """The first requested option the port cannot run yet, as a message."""
-    for opt, asked in (("-plot", cfg.dotplot_path is not None),
-                       ("-shard", cfg.shard_index),
-                       ("-slabs", cfg.shard_slabs is not None)):
-        if asked:
-            return f"{opt} is not ported yet ({_NOT_PORTED[opt]})"
-    return None
-
-
 def default_out_path(query_paths: list[str], cfg: Config) -> str:
     """Reference behavior: output name derived from the input names."""
     base = os.path.basename(query_paths[0])
@@ -172,12 +160,8 @@ def main(argv: list[str] | None = None) -> int:
     except CliError as e:
         print(str(e), file=sys.stderr)
         return 2
-    refused = _not_ported(cfg)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 2
 
-    # deferred so -h and refusals stay fast
+    # deferred so -h stays fast
     import numpy as np
 
     from slamem_tpu_torch.engine.run import run_engine
@@ -242,6 +226,13 @@ def main(argv: list[str] | None = None) -> int:
     else:
         with open(out_path, "w") as f:
             f.write(text)
+    if cfg.dotplot_path:
+        from slamem_tpu_torch.report.dotplot import write_dotplot
+
+        write_dotplot(cfg.dotplot_path, out,
+                      ref_len=int(ref_set.lengths.sum()),
+                      query_len=int(query_set.lengths.sum()),
+                      ref_starts=ref_set.starts)
     if cfg.verbose:
         s = out.stats
         print(f"index build: {s['index_build_s']:.3f}s; "
@@ -254,8 +245,12 @@ def main(argv: list[str] | None = None) -> int:
         for st in s["searches"]:
             stages = " ".join(f"{name}={sec:.6f}"
                               for name, sec in st["stage_s"].items())
-            print(f"search: k={st['k']} stride={st['stride']} "
-                  f"frontend={st.get('frontend', 'scan')} "
+            if st.get("virtual_slabs"):
+                route = (f"shards={st['shards']} virtual shift={st['shift']} "
+                         f"probes={st['probes']} R={st['R']}")
+            else:
+                route = f"frontend={st.get('frontend', 'scan')}"
+            print(f"search: k={st['k']} stride={st['stride']} {route} "
                   f"rounds={st['rounds']} pairs={st['pairs']}; "
                   f"stage s: {stages}", file=sys.stderr)
     return 0

@@ -3,7 +3,8 @@
 
 Load reference → build index → for each query sequence (and strand with -b)
 → search → filter → report, with the search itself delegated to the seed
-engine (the default) or the scan engine (``Config.engine``).
+engine (the default; ``-shard -slabs n`` runs its virtual-slab form,
+``dist/sharded.py``) or the scan engine (``Config.engine``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from slamem_tpu_torch.config import Config
+from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
 from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.index.build import FMIndex, build_index
 from slamem_tpu_torch.io.fasta import FastaSet, revcomp_codes
@@ -47,8 +49,18 @@ class EngineOutput:
 def _search_one(index: FMIndex, qcodes: np.ndarray,
                 cfg: Config) -> seed_mode.SeedMatches:
     if cfg.engine == "seed":
+        # -shard with more than one slab runs the virtual-slab program on
+        # the one device; -shard alone (one slab) and -slabs without -shard
+        # run the replicated engine, as the JAX package does on one device
+        if cfg.shard_index and (cfg.shard_slabs or 1) > 1:
+            return find_seed_matches_sharded(index, qcodes, cfg,
+                                             n_slabs=cfg.shard_slabs)
         return seed_mode.find_seed_matches(index, qcodes, cfg)
     if cfg.engine == "scan":
+        if cfg.shard_index:
+            raise ValueError(
+                "-engine scan is the single-device parity engine; it does "
+                "not support -shard (use the default seed engine)")
         return scan_mode.find_scan_matches(index, qcodes, cfg)
     raise ValueError(f"unknown engine {cfg.engine!r}")
 
@@ -58,9 +70,6 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
                index: FMIndex | None = None) -> EngineOutput:
     """Search every query sequence (both strands with -b) on ``device``."""
     dev = resolve_device(device)
-    if cfg.shard_index:
-        raise NotImplementedError(
-            "index sharding is not ported yet (ROADMAP A8: index sharding)")
     t0 = time.perf_counter()
     rtext, rstarts = ref_set.with_separators()
     if index is None:

@@ -1,5 +1,6 @@
-"""Port on the card: the CUDA rank kernel, and the scan and seed engines on
-a CUDA device, against their plain versions / CPU runs on the same inputs.
+"""Port on the card: the CUDA rank kernel, and the scan, seed and
+virtual-slab engines on a CUDA device, against their plain versions / CPU
+runs on the same inputs.
 
 These tests need a CUDA card (marker ``cuda``) and skip without one. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -15,6 +16,7 @@ import torch
 
 from slamem_tpu_torch.cli.main import main
 from slamem_tpu_torch.config import Config
+from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
 from slamem_tpu_torch.engine.seed_mode import find_seed_matches
 from slamem_tpu_torch.index.build import build_index, rank_batch
@@ -82,6 +84,25 @@ def test_seed_engine_cuda_equals_cpu(cuda, fields):
                                       "frontend")} == {
         k: want.stats[k] for k in ("pairs", "k", "stride", "rounds",
                                    "frontend")}
+
+
+@pytest.mark.parametrize("n_slabs", [2, 8, 301])
+def test_virtual_slabs_cuda_equals_cpu(cuda, n_slabs):
+    """The n-slab program on the card (slab tables, owner-routed frontend,
+    per-slab runs, on-device merge) gives the CPU run's matches and plan."""
+    ref = with_n_runs(random_genome(200_000, seed=153), 3, 40, seed=154)
+    qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=155), 2, 30, seed=156)
+    cfg = Config(min_length=20)
+    got = find_seed_matches_sharded(build_index(ref, device=cuda), qry, cfg,
+                                    n_slabs=n_slabs)
+    want = find_seed_matches_sharded(build_index(ref, device="cpu"), qry,
+                                     cfg, n_slabs=n_slabs)
+    for f in ("refpos", "qpos", "length"):
+        assert np.array_equal(getattr(got, f), getattr(want, f))
+    assert got.length.size > 0
+    plan = ("pairs", "k", "stride", "rounds", "shards", "shift", "probes",
+            "R")
+    assert {k: got.stats[k] for k in plan} == {k: want.stats[k] for k in plan}
 
 
 def test_cli_save_load_on_cuda(cuda, tmp_path):

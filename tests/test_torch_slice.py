@@ -175,11 +175,31 @@ def test_save_load_both_packages(inputs, tmp_path):
     ["-engine", "scan", "-shard"],
     ["-engine", "scan", "-slabs", "2"],
     ["-engine", "scan", "-plot", "x.bmp"],
+    ["-shard", "-slabs", "3"],
+    ["-shard", "-slabs", "3", "-b", "-mum"],
+    ["-slabs", "2"],                     # without -shard: replicated
 ])
-def test_unported_options_exit_2(inputs, flags, capsys):
+def test_unported_options_exit_2(inputs, flags, tmp_path):
+    """The options the port once refused with exit status 2 (-shard,
+    -slabs, -plot) now give the JAX CLI's exit status, listing bytes and
+    dot-plot bytes; -engine scan -shard exits 2 in both."""
     ref, qry = inputs["single"]
-    assert main([*flags, "-device", "cpu", "-o", "-", ref, qry]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    got = {}
+    for pkg, cli, extra in (("jax", jax_main, []),
+                            ("torch", main, ["-device", "cpu"])):
+        d = tmp_path / pkg
+        d.mkdir()
+        argv = [str(d / f) if f == "x.bmp" else f for f in flags]
+        rc = cli([*argv, *extra, "-o", str(d / "out.txt"), ref, qry])
+        got[pkg] = (rc, *(p.read_bytes() if p.exists() else None
+                          for p in (d / "out.txt", d / "x.bmp")))
+    assert got["torch"] == got["jax"]
+    rc, listing, bmp = got["jax"]
+    if flags[:3] == ["-engine", "scan", "-shard"]:
+        assert rc == 2 and listing is None
+    else:
+        assert rc == 0 and listing.count(b"\n") > 2
+        assert (bmp is not None) == ("-plot" in flags)
 
 
 def test_bad_device_flag_exits_2(inputs):
