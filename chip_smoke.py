@@ -3,19 +3,33 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
 Phases, each of which raises on failure (exit status non-zero):
-  1. build the rank kernel (csrc/rank.cu, nvcc, sm_90a) from the checkout;
-  2. hold the kernel against its plain PyTorch version on the 5 Mbp headline
-     reference's table: >= 4M random (c, j) queries plus the edge positions,
-     and the scan engine's batch shape; exact integer equality; times both;
+  1. build the rank kernels (csrc/rank.cu: K0 and the nibble kernel, nvcc,
+     sm_90a) from the checkout;
+  2. hold each kernel against its plain PyTorch version, exact integer
+     equality, and time both: K0 (rank_rows, interleaved table) and the
+     nibble kernel (rank_rows_nib, nibble table), each on the 5 Mbp
+     headline reference's table with >= 4M random (c, j) queries plus the
+     row-edge positions, at the scan engine's batch shape, and on a random
+     200 M-symbol table larger than L2;
   3. the scan slice end to end through the CLI, ``-engine scan -l 20
      -device cuda``, on the bench's headline pair
      (strain_pair(5_000_000, seed=20260816, sub_rate=0.015,
      indel_rate=0.0015)): the listing must hold exactly 59,101 MEMs (the
      count the JAX package records in BENCH_DETAIL.json), every one an exact
-     maximal match, and the run must have launched the kernel;
+     maximal match, and the run (rank_kernel "auto", which resolves to the
+     nibble table as in the JAX package) must have launched the nibble
+     kernel;
+     3k. the same pair through run_engine with ``rank_kernel="pallas"``
+         (K0) on the card: the run must have launched K0 and no nibble
+         kernel, and its listing bytes must equal phase 3's; K0's launches
+         in the kernels line are this run's;
   4. a ~200 kbp multi-FASTA pair with N runs through ``-b``, ``-b -mum`` and
      ``-b -mam``: the listing bytes on ``-device cuda`` and ``-device cpu``
      must be identical;
+     4k. the same input through run_engine with ``rank_kernel="pallas"``
+         (K0) on the card, MEM/MUM/MAM, both strands: the run must have
+         launched K0, and the listing bytes must equal phase 4's (nibble)
+         scan bytes;
   5. the default engine (seed: K-mer frontend, sparse seeding, endpoint
      extension), through the CLI without ``-engine``, on ``-device cuda``,
      at the bench's sizes, each listing holding exactly the JAX package's
@@ -33,6 +47,20 @@ Phases, each of which raises on failure (exit status non-zero):
      5a-5d print the plan (K, stride, frontend, rounds), index build and
      query seconds, each stage's device-synchronised seconds (the CLI's
      ``-v`` line) and peak device memory;
+  7. the boundary match backend (``Config(match_backend="boundary")``,
+     dense seeding at stride 1) through run_engine on the card:
+     7a. the headline pair at ``-l 20``: 59,101, bytes == 5a's listing;
+     7b. the 40 Mbp pair at ``-l 50``: 286,645, bytes == 5c's listing, at
+         the default pair capacity and at 2^24 (several rounds);
+     7c. phase 4's input with ``-b``, MEM/MUM/MAM, seed and scan engines:
+         GPU bytes == CPU bytes == the sort backend's bytes;
+     7d. the same input (seed, MEM) at a pair capacity of 4,096: several
+         rounds, bytes == one round's.
+     7a and 7b print the plan (K, stride, rounds, pairs), stage seconds and
+     peak device memory;
+  8. the native host paths at 5c and 6a sizes: read_fasta (C parser) ==
+     parse_fasta_bytes (numpy) and format_matches (C) ==
+     format_matches_python (bytes, and == the CLI's listing), each timed;
   6. BASELINE config #5 (the bench's chr1-scale pair: reference
      ``strain_pair(250_000_000, seed=20260816, sub_rate=0.03,
      indel_rate=0.003)``, query its strain's first 50,000,000 codes) at
@@ -49,8 +77,11 @@ Phases, each of which raises on failure (exit status non-zero):
      6a and 6b print the plan (K, stride, slabs, shift, probes, R, rounds,
      pairs), index build and query seconds, stage seconds, peak device
      memory and the card's name and power limit.
-Prints the card and its power limit (nvidia-smi), a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``. Imports no JAX.
+Phases run in the order 1-3, 3k, 4 with 5e, 4k, 7c, 7d, 5a, 7a, 5b, 5d, 5c,
+7b, 8 (5c), 6c, 6a, 8 (6a), 6b. Prints the card and its power limit
+(nvidia-smi), a ``{"kernels": [...]}`` line (each kernel's launches on
+its path, exactness, time, plain time and lower bound), and last
+``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -83,7 +114,15 @@ CHR1_L = 50
 CHR1_SLABS = 8
 CHR1_MATCHES = 307_706           # chr1_250mbp_l50.matches (== sharded)
 RANDOM_QUERIES = 1 << 22         # 4,194,304 random occ queries
-ROW_BYTES = 512                  # one interleaved table row per query
+# a pair capacity under 5c's dense pair total (31M at K=16) but over a
+# third of it, so the rounds do not grow to pair_capacity_max: 2 rounds
+BOUNDARY_ROUNDS_CAPACITY = 1 << 24
+ROW_BYTES = 512                  # one table row per query (both layouts)
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
+# peak scalar rate: 67 TFLOP/s float32 outside the tensor cores (NVIDIA data
+# sheet); the integer pipes are no faster, so ops / this rate is a lower
+# bound on the time of integer work
+SCALAR_OPS_PER_S = 67e12
 
 
 def _log(msg: str) -> None:
@@ -106,18 +145,27 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_vs_plain(rank, rows, chars, positions, label: str) -> dict:
-    """Exact check of rank_rows against rank_rows_plain, then times: the
-    raw kernel launch, the wrapper (with its argument checks) and plain."""
+def _kernel_vs_plain(rank, name: str, rows, chars, positions,
+                     label: str) -> dict:
+    """Exact check of a rank wrapper (``rank_rows`` or ``rank_rows_nib``)
+    against its plain version, then times: the raw kernel launch, the
+    wrapper (with its argument checks) and plain; and the kernel's lower
+    bound on this input (bytes: each touched row once, chars, positions
+    and out; operations: the kernel's integer work per symbol word)."""
     import torch
 
-    got = rank.rank_rows(rows, chars, positions)
-    want = rank.rank_rows_plain(rows, chars, positions)
+    wrapper = getattr(rank, name)
+    plain = getattr(rank, name + "_plain")
+    got = wrapper(rows, chars, positions)
+    want = plain(rows, chars, positions)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err != 0 or not torch.equal(got, want):
-        raise AssertionError(f"{label}: kernel != plain (max abs err {err})")
-    fn = rank.load_kernel().fn
+        raise AssertionError(f"{name} {label}: kernel != plain (max abs err "
+                             f"{err})")
+    kernel = rank.load_kernel()
+    nib = name == "rank_rows_nib"
+    fn = kernel.nib_fn if nib else kernel.fn
     out = torch.empty_like(positions)
     nq = positions.numel()
     stream = torch.cuda.current_stream().cuda_stream
@@ -125,18 +173,34 @@ def _kernel_vs_plain(rank, rows, chars, positions, label: str) -> dict:
     def raw():
         if fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
               out.data_ptr(), nq, stream):
-            raise RuntimeError("rank kernel launch failed")
+            raise RuntimeError(f"{name} launch failed")
 
     ms = _cuda_ms(raw, 50)
-    wrapper_ms = _cuda_ms(lambda: rank.rank_rows(rows, chars, positions), 20)
-    plain_ms = _cuda_ms(lambda: rank.rank_rows_plain(rows, chars, positions),
-                        5)
-    gbps = ROW_BYTES * nq / (ms * 1e-3) / 1e9
-    _log(f"[rank] {label}: {nq} queries, table {rows.numel() * 4} B; "
-         f"kernel {ms:.6f} ms ({gbps:.2f} GB/s at 512 B/query), "
-         f"wrapper {wrapper_ms:.6f} ms, plain {plain_ms:.6f} ms; exact")
+    wrapper_ms = _cuda_ms(lambda: wrapper(rows, chars, positions), 20)
+    plain_ms = _cuda_ms(lambda: plain(rows, chars, positions), 5)
+    words = int(rows.shape[1]) - rank.CNT_WORDS
+    syms_per_row = words * (8 if nib else 4)
+    touched = int(torch.unique(torch.div(
+        positions, syms_per_row, rounding_mode="floor")).numel())
+    row_bytes = int(rows.shape[1]) * 4
+    bound_bytes = touched * row_bytes + 3 * 4 * nq
+    # per symbol word: nib xor, and, add, or, andnot, mask, popc, add (8);
+    # K0 extract, compare, position test, add per byte (4 x 4)
+    bound_ops = nq * words * (8 if nib else 16)
+    bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    gbps = row_bytes * nq / (ms * 1e-3) / 1e9
+    plain_gbps = row_bytes * nq / (plain_ms * 1e-3) / 1e9
+    _log(f"[rank] {name} {label}: {nq} queries, table {rows.numel() * 4} B "
+         f"({touched} rows touched); kernel {ms:.6f} ms ({gbps:.2f} GB/s at "
+         f"{row_bytes} B/query), wrapper {wrapper_ms:.6f} ms, plain "
+         f"{plain_ms:.6f} ms ({plain_gbps:.2f} GB/s); bound "
+         f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bound_bytes}: "
+         f"{bytes_ms:.6f} ms, ops {bound_ops}: {ops_ms:.6f} ms); exact")
     return {"queries": nq, "ms": ms, "wrapper_ms": wrapper_ms,
-            "plain_ms": plain_ms, "gb_per_s": gbps, "max_abs_err": err}
+            "plain_ms": plain_ms, "gb_per_s": gbps, "max_abs_err": err,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _listing_matches(path: str) -> list[tuple[int, int, int]]:
@@ -218,11 +282,92 @@ def _seed_phase(cli_main, label: str, flags: list[str], want: int, rp: str,
          f"plan {plan}; index build {st['build_s']:.3f} s, query "
          f"{st['query_s']:.3f} s ({st['mbp_per_s']:.2f} Mbp/s); stage s: "
          f"{stages}, host tail {st['host_tail_s']:.6f}; CLI wall "
-         f"{wall:.3f} s; peak device memory {st['peak_gib']:.3f} GiB")
+         f"{wall:.3f} s; peak device memory {st['peak_gib']:.3f} "
+         "GiB")
     if st["matches"] != want:
         raise AssertionError(f"seed {label}: {st['matches']} matches, "
                              f"expected {want}")
     return st
+
+
+def _engine_phase(label: str, ref_set, qry_set, cfg, want: int | None,
+                  device: str = "cuda"):
+    """One run_engine call (native renderer): (listing bytes, its stats).
+    On the card it prints the plan, stage seconds and peak device memory.
+    Raises if the count is not ``want`` (None: any count above 0)."""
+    import torch
+
+    from slamem_tpu_torch.engine.run import run_engine
+    from slamem_tpu_torch.report.format import format_matches
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = run_engine(ref_set, qry_set, cfg, device)
+    text = format_matches(out).encode()
+    st = out.stats
+    n = st["matches"]
+    if (want is None and n == 0) or (want is not None and n != want):
+        raise AssertionError(f"{label}: {n} matches, expected "
+                             f"{want or '> 0'}")
+    if device == "cuda":
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        for search in st["searches"]:
+            plan = " ".join(f"{k}={search[k]}" for k in
+                            ("k", "stride", "rounds", "pairs"))
+            stages = " ".join(f"{k} {v:.6f}"
+                              for k, v in search["stage_s"].items())
+            _log(f"[{label}] {n} matches; plan {plan}; index build "
+                 f"{st['index_build_s']:.3f} s, query {st['query_s']:.3f} s;"
+                 f" stage s: {stages}; peak device memory "
+                 f"{st['peak_gib']:.3f} GiB")
+    return text, st
+
+
+def _native_phase(label: str, rp: str, qp: str, cfg, listing: bytes,
+                  smi: str) -> dict:
+    """The native host paths at one size: read_fasta (C parser) against
+    parse_fasta_bytes (numpy) on the same files, equal FastaSets; then one
+    run_engine call and its listing by format_matches (C) against
+    format_matches_python, equal bytes, equal to the CLI's listing. Each
+    timed."""
+    import numpy as np
+
+    from slamem_tpu_torch.engine.run import run_engine
+    from slamem_tpu_torch.io.fasta import parse_fasta_bytes, read_fasta
+    from slamem_tpu_torch.report.format import (format_matches,
+                                                 format_matches_python)
+
+    t0 = time.perf_counter()
+    sets = [read_fasta(p) for p in (rp, qp)]
+    native_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [parse_fasta_bytes(Path(p).read_bytes(), p) for p in (rp, qp)]
+    plain_read = time.perf_counter() - t0
+    for a, b in zip(sets, plain):
+        if a.names != b.names or not all(
+                np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("starts", "lengths", "codes")):
+            raise AssertionError(f"{label}: native FastaSet != numpy's")
+    out = run_engine(*sets, cfg, "cuda")
+    t0 = time.perf_counter()
+    native = format_matches(out)
+    native_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = format_matches_python(out)
+    python_render = time.perf_counter() - t0
+    if native != python or native.encode() != listing:
+        raise AssertionError(f"{label}: native and Python listings differ "
+                             "or differ from the CLI's")
+    res = {"read_native_s": native_read, "read_numpy_s": plain_read,
+           "render_native_s": native_render,
+           "render_python_s": python_render, "lines": out.stats["matches"],
+           "bytes": len(listing)}
+    _log(f"[native {label}] read {native_read:.3f} s (numpy parser "
+         f"{plain_read:.3f} s), render {native_render:.3f} s (Python "
+         f"{python_render:.3f} s) for {res['lines']} matches, "
+         f"{res['bytes']} bytes; FastaSets and listings equal; {smi}")
+    return res
 
 
 def run() -> int:
@@ -245,12 +390,11 @@ def run() -> int:
               "checkout", file=sys.stderr)
         return 1
 
-    import numpy as np
-
     from slamem_tpu_torch.cli.main import main as cli_main
+    from slamem_tpu_torch.config import Config, MatchMode
     from slamem_tpu_torch.engine import scan_mode
     from slamem_tpu_torch.index.build import build_index
-    from slamem_tpu_torch.io.fasta import Sequence, write_fasta
+    from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
     from slamem_tpu_torch.kernels import rank
     from slamem_tpu_torch.utils import synth
 
@@ -266,77 +410,114 @@ def run() -> int:
     # 1. build
     t0 = time.perf_counter()
     kernel = rank.load_kernel()
-    _log(f"[build] rank kernel {kernel.path.name} in "
+    _log(f"[build] rank kernels {kernel.path.name} in "
          f"{time.perf_counter() - t0:.3f} s")
     for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             _log(f"[build] {line.strip()}")
 
-    # 2. kernel vs plain on the headline reference's table
+    # 2. each kernel vs its plain version on the headline reference's
+    # tables, at the scan's batch shape, and on a table larger than L2
     ref, qry = synth.strain_pair(HEADLINE["n"], seed=HEADLINE["seed"],
                                  sub_rate=HEADLINE["sub_rate"],
                                  indel_rate=HEADLINE["indel_rate"])
     index = build_index(ref, device="cuda")
-    rows = rank.interleaved_rows(index)
-    torch.cuda.synchronize()
     n = index.n
     gen = torch.Generator(device="cuda").manual_seed(HEADLINE["seed"])
-    edges = torch.tensor([0, 1, 495, 496, 497, n - 1, n], dtype=torch.int32,
-                         device="cuda").repeat_interleave(4)
-    edge_c = torch.arange(4, dtype=torch.int32, device="cuda").repeat(7)
-    positions = torch.cat([torch.randint(0, n + 1, (RANDOM_QUERIES,),
-                                         generator=gen, device="cuda",
-                                         dtype=torch.int32), edges])
-    chars = torch.cat([torch.randint(0, 4, (RANDOM_QUERIES,), generator=gen,
-                                     device="cuda", dtype=torch.int32),
-                       edge_c])
-    big = _kernel_vs_plain(rank, rows, chars, positions,
-                           "random + edges, 5 Mbp table")
+    rand_pos = torch.randint(0, n + 1, (RANDOM_QUERIES,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    rand_c = torch.randint(0, 4, (RANDOM_QUERIES,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    bwt_big = torch.randint(0, 4, (200_000_000,), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+    pos_big = torch.randint(0, bwt_big.numel() + 1, (RANDOM_QUERIES,),
+                            generator=gen, device="cuda", dtype=torch.int32)
     # the scan engine's batch: 2 occ queries per lane, one lane per 256
     # query positions of a chunk of at most _SCAN_CHUNK positions
     lanes = -(-min(len(qry), scan_mode._SCAN_CHUNK) // 256)
-    slice_shape = _kernel_vs_plain(rank, rows, chars[:2 * lanes].contiguous(),
-                                   positions[:2 * lanes].contiguous(),
-                                   "scan batch shape, 5 Mbp table")
-    bwt_big = torch.randint(0, 4, (200_000_000,), generator=gen,
-                            device="cuda", dtype=torch.uint8)
-    rows_big = rank._build_rows(bwt_big)
-    pos_big = torch.randint(0, bwt_big.numel() + 1, (RANDOM_QUERIES,),
-                            generator=gen, device="cuda", dtype=torch.int32)
-    hbm = _kernel_vs_plain(rank, rows_big, chars[:RANDOM_QUERIES].contiguous(),
-                           pos_big, "random, 200 M-symbol table (> L2)")
-    del bwt_big, rows_big, pos_big, index, rows
+    checks = {}
+    for name, rows, build, per_row in (
+            ("rank_rows", rank.interleaved_rows(index), rank._build_rows,
+             rank.SYMS_PER_ROW),
+            ("rank_rows_nib", rank.nibble_rows(index), rank._build_rows_nib,
+             rank.NIB_PER_ROW)):
+        span = rows.shape[0] * per_row
+        edge = torch.tensor(sorted({0, 1, per_row - 1, per_row, per_row + 1,
+                                    2 * per_row - 1, 2 * per_row, n - 1, n,
+                                    span - 1}), dtype=torch.int32,
+                            device="cuda")
+        positions = torch.cat([rand_pos, edge.repeat_interleave(4)])
+        chars = torch.cat([rand_c, torch.arange(
+            4, dtype=torch.int32, device="cuda").repeat(edge.numel())])
+        big = _kernel_vs_plain(rank, name, rows, chars, positions,
+                               "random + edges, 5 Mbp table")
+        shape = _kernel_vs_plain(rank, name, rows,
+                                 chars[:2 * lanes].contiguous(),
+                                 positions[:2 * lanes].contiguous(),
+                                 "scan batch shape, 5 Mbp table")
+        rows_big = build(bwt_big)
+        hbm = _kernel_vs_plain(rank, name, rows_big, rand_c, pos_big,
+                               f"random, 200 M-symbol table "
+                               f"({rows_big.numel() * 4} B > L2)")
+        checks[name] = {"big": big, "shape": shape, "hbm": hbm}
+        del rows, rows_big
+    del bwt_big, pos_big, rand_pos, rand_c, index
     torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 3. the scan slice end to end at the headline input
+        # 3. the scan slice end to end at the headline input (rank_kernel
+        # "auto": the nibble kernel)
         rp, qp, out = (os.path.join(tmp, f) for f in
                        ("ref.fa", "qry.fa", "scan.txt"))
         write_fasta(rp, [Sequence("ref", ref)])
         write_fasta(qp, [Sequence("qry", qry)])
         torch.cuda.reset_peak_memory_stats()
-        rank.rank_rows.launches = 0
+        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
         t0 = time.perf_counter()
         stderr = _cli(cli_main, ["-engine", "scan", "-l", str(HEADLINE_L),
                                  "-device", "cuda", "-v", "-o", out, rp, qp])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = rank.rank_rows.launches
+        launches = {"rank_rows_nib": rank.rank_rows_nib.launches}
+        k0_on_nib_path = rank.rank_rows.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         stats = _verbose_stats(stderr)
         matches = _listing_matches(out)
         _log(f"[slice] 5 Mbp scan -l {HEADLINE_L}: {len(matches)} matches; "
              f"index build {stats['build_s']} s, query {stats['query_s']} s "
-             f"({stats['mbp_per_s']} Mbp/s), CLI wall {wall:.3f} s; rank "
-             f"kernel launches {launches}; peak device memory "
-             f"{peak_gib:.3f} GiB")
+             f"({stats['mbp_per_s']} Mbp/s), CLI wall {wall:.3f} s; nibble "
+             f"kernel launches {launches['rank_rows_nib']}, K0 launches "
+             f"{k0_on_nib_path}; peak device memory {peak_gib:.3f} GiB")
         if len(matches) != HEADLINE_MATCHES:
             raise AssertionError(f"{len(matches)} matches, expected "
                                  f"{HEADLINE_MATCHES}")
-        if launches <= 0:
-            raise AssertionError("the scan slice never launched the kernel")
+        if launches["rank_rows_nib"] <= 0 or k0_on_nib_path != 0:
+            raise AssertionError("the scan slice did not run on the nibble "
+                                 "kernel alone")
         _check_maximal(ref, qry, matches)
         _log("[slice] every match exact and maximal")
+
+        # 3k. K0 on a path at full size: the same scan with
+        # rank_kernel="pallas"; K0's launches in the kernels line are these
+        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        t0 = time.perf_counter()
+        k0_text, k0_st = _engine_phase(
+            "k0 3k", read_fasta(rp), read_fasta(qp),
+            Config(engine="scan", rank_kernel="pallas",
+                   min_length=HEADLINE_L), HEADLINE_MATCHES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["rank_rows"] = rank.rank_rows.launches
+        nib_on_k0_path = rank.rank_rows_nib.launches
+        _log(f"[k0 3k] 5 Mbp scan -l {HEADLINE_L}, rank_kernel=pallas: "
+             f"{k0_st['matches']} matches; query {k0_st['query_s']:.3f} s, "
+             f"wall {wall:.3f} s; K0 launches {launches['rank_rows']}, "
+             f"nibble kernel launches {nib_on_k0_path}")
+        if launches["rank_rows"] <= 0 or nib_on_k0_path != 0:
+            raise AssertionError("the K0 scan did not run on K0 alone")
+        if k0_text != Path(out).read_bytes():
+            raise AssertionError("3k: K0 scan listing != phase 3's")
+        _log("[k0 3k] listing == phase 3's nibble-kernel scan listing")
 
         # 4. GPU == CPU listing bytes, multi-FASTA with N runs, both strands
         # planted repeats make some MEMs non-unique, so -mum/-mam filter
@@ -374,6 +555,51 @@ def run() -> int:
                                      "scan listing")
         _log("[bytes] seed listings == scan listings (-b, -mum, -mam)")
 
+        # 4k. K0 on a path: the scan with rank_kernel="pallas" at 200 kbp
+        sets2 = (read_fasta(rp2), read_fasta(qp2))
+        modes = {(): MatchMode.MEM, ("-mum",): MatchMode.MUM,
+                 ("-mam",): MatchMode.MAM}
+        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        k0_bytes = {mode: _engine_phase("k0", *sets2, Config(
+            engine="scan", rank_kernel="pallas", both_strands=True,
+            min_length=20, mode=mm), None)[0] for mode, mm in modes.items()}
+        k0_4k = rank.rank_rows.launches
+        nib_on_k0_path = rank.rank_rows_nib.launches
+        _log(f"[k0 4k] -engine scan rank_kernel=pallas -b, MEM/MUM/MAM: K0 "
+             f"launches {k0_4k}, nibble kernel launches {nib_on_k0_path}")
+        if k0_4k <= 0 or nib_on_k0_path != 0:
+            raise AssertionError("the K0 scan did not run on K0 alone")
+        for mode, text in k0_bytes.items():
+            if text != bytes_cpu[mode][0]:
+                raise AssertionError(f"K0 scan -b {' '.join(mode)}: listing "
+                                     "!= the nibble scan's")
+        _log("[k0 4k] listings == phase 4's nibble-kernel scan listings "
+             "(-b, -mum, -mam)")
+
+        # 7c, 7d. the boundary backend at 200 kbp
+        for engine in ("scan", "seed"):
+            for mode, mm in modes.items():
+                cfg = Config(engine=engine, match_backend="boundary",
+                             both_strands=True, min_length=20, mode=mm)
+                texts = {dev: _engine_phase(f"boundary 7c {engine}", *sets2,
+                                            cfg, None, dev)[0]
+                         for dev in ("cuda", "cpu")}
+                if not texts["cuda"] == texts["cpu"] == bytes_cpu[mode][0]:
+                    raise AssertionError(
+                        f"boundary {engine} -b {' '.join(mode)}: GPU, CPU "
+                        "and sort listings differ")
+                _log(f"[boundary 7c] {engine} -b {' '.join(mode) or '-mem'}:"
+                     f" {len(texts['cpu'])} bytes, GPU == CPU == sort")
+        text, st = _engine_phase("boundary 7d", *sets2, Config(
+            match_backend="boundary", both_strands=True, min_length=20,
+            pair_capacity=4096), None)
+        rounds = st["searches"][0]["rounds"]
+        if text != bytes_cpu[()][0] or rounds < 2:
+            raise AssertionError(f"boundary 7d: {rounds} rounds; listing "
+                                 "!= one round's")
+        _log(f"[boundary 7d] pair_capacity 4096: {rounds} rounds == one "
+             "round")
+
         # 5a-5d. the default engine at the bench's sizes
         seed_out = os.path.join(tmp, "seed.txt")
         seed = {"5a": _seed_phase(cli_main, "5a", ["-l", str(HEADLINE_L)],
@@ -383,6 +609,15 @@ def run() -> int:
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[seed 5a] listing == scan listing; every match exact and "
              "maximal")
+        # 7a. the boundary backend at 5a
+        boundary = {}
+        text, boundary["7a"] = _engine_phase(
+            "boundary 7a", read_fasta(rp), read_fasta(qp),
+            Config(min_length=HEADLINE_L, match_backend="boundary"),
+            HEADLINE_MATCHES)
+        if text != Path(seed_out).read_bytes():
+            raise AssertionError("7a: boundary listing != 5a's")
+        _log("[boundary 7a] listing == 5a's")
         seed["5b"] = _seed_phase(cli_main, "5b", ["-mam", "-l",
                                                   str(HEADLINE_L)],
                                  MAM_MATCHES, rp, qp, seed_out)
@@ -405,6 +640,26 @@ def run() -> int:
         _log("[seed 5c] every match exact and maximal")
         torch.cuda.synchronize()
         _log("[seed] " + json.dumps(seed, sort_keys=True))
+        # 7b. the boundary backend at 5c; 8. the native host paths at 5c
+        sets = (read_fasta(rp), read_fasta(qp))
+        for key, cap in (("7b", Config.pair_capacity),
+                         ("7b rounds", BOUNDARY_ROUNDS_CAPACITY)):
+            text, boundary[key] = _engine_phase(
+                f"boundary {key}", *sets, Config(
+                    min_length=CHR21_L, match_backend="boundary",
+                    pair_capacity=cap), CHR21_MATCHES)
+            if text != Path(seed_out).read_bytes():
+                raise AssertionError(f"{key}: boundary listing != 5c's")
+            _log(f"[boundary {key}] pair_capacity {cap}: "
+                 f"{boundary[key]['searches'][0]['rounds']} round(s); "
+                 "listing == 5c's")
+        if boundary["7b rounds"]["searches"][0]["rounds"] < 2:
+            raise AssertionError("7b: the smaller capacity ran one round")
+        del sets
+        _log("[boundary] " + json.dumps(boundary, sort_keys=True))
+        native = {"5c": _native_phase("5c", rp, qp,
+                                      Config(min_length=CHR21_L),
+                                      Path(seed_out).read_bytes(), smi)}
 
         # 6c. the virtual-slab program at 200 kbp: GPU == CPU == default
         for mode in ([], ["-mum"], ["-mam"]):
@@ -441,6 +696,10 @@ def run() -> int:
                                   CHR1_MATCHES, rp, qp, seed_out)}
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[chr1 6a] every match exact and maximal")
+        del ref, qry
+        native["6a"] = _native_phase("6a", rp, qp, Config(min_length=CHR1_L),
+                                     Path(seed_out).read_bytes(), smi)
+        _log("[native] " + json.dumps(native, sort_keys=True))
         shard_out = os.path.join(tmp, "shard.txt")
         chr1["6b"] = _seed_phase(
             cli_main, "6b", ["-shard", "-slabs", str(CHR1_SLABS), "-l",
@@ -450,21 +709,30 @@ def run() -> int:
         _log(f"[chr1 6b] {CHR1_SLABS}-slab listing == replicated listing")
         _log("[chr1] " + json.dumps(chr1, sort_keys=True))
 
-    _log(f"[rank] 4M random queries: kernel {big['ms']:.6f} ms "
-         f"({big['gb_per_s']:.2f} GB/s) vs plain {big['plain_ms']:.6f} ms; "
-         f"> L2 table: kernel {hbm['ms']:.6f} ms ({hbm['gb_per_s']:.2f} GB/s)"
-         f" vs plain {hbm['plain_ms']:.6f} ms")
+    for name, c in checks.items():
+        _log(f"[rank] {name}: 4M random queries: kernel {c['big']['ms']:.6f}"
+             f" ms ({c['big']['gb_per_s']:.2f} GB/s) vs plain "
+             f"{c['big']['plain_ms']:.6f} ms; > L2 table: kernel "
+             f"{c['hbm']['ms']:.6f} ms ({c['hbm']['gb_per_s']:.2f} GB/s, "
+             f"bound {c['hbm']['bound_ms']:.6f} ms) vs plain "
+             f"{c['hbm']['plain_ms']:.6f} ms")
+    replaces = {"rank_rows": "slamem_tpu/kernels/rank.py:87",
+                "rank_rows_nib": "slamem_tpu/kernels/rank.py:253"}
+    # times at the shape the main path gives each kernel: the 5 Mbp scan's
+    # batch (phase 3 for nib, 3k for K0, whose launches these are)
     print(json.dumps({"kernels": [{
-        "name": "rank_rows",
+        "name": name,
         "route": "cuda",
         "source": "slamem_tpu_torch/kernels/csrc/rank.cu",
-        "replaces": "slamem_tpu/kernels/rank.py:87",
-        "launches": launches,
-        "max_abs_err": max(big["max_abs_err"], slice_shape["max_abs_err"],
-                           hbm["max_abs_err"]),
-        "ms": slice_shape["ms"],
-        "plain_ms": slice_shape["plain_ms"],
-    }]}))
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": max(c[k]["max_abs_err"] for k in c),
+        "ms": c["shape"]["ms"],
+        "plain_ms": c["shape"]["plain_ms"],
+        "bound_ms": c["shape"]["bound_ms"],
+        "bound_by": c["shape"]["bound_by"],
+        "library_ms": None,   # no one PyTorch call computes occ from a row
+    } for name, c in checks.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

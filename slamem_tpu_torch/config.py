@@ -49,11 +49,12 @@ class Config:
     # strain pair; transient expansion buffers ~10x capacity x 4 B fit HBM)
     pair_capacity_max: int = 1 << 25
     occ_block: int = 128            # occ checkpoint spacing (symbols)
-    # scan-engine rank backend (kernels/rank.py): "auto"/"pallas" = the
-    # hand-written CUDA kernel on CUDA tensors, its plain version on CPU
-    # tensors; "xla" = plain rank_batch over the occ checkpoints;
-    # "pallas_interpret" = the plain version over the interleaved table;
-    # "nib" (nibble-SWAR layout) is not ported yet
+    # scan-engine rank backend (kernels/rank.py), resolved as the JAX
+    # package resolves it: "auto"/"nib" = the nibble-SWAR table (992
+    # symbols per 512 B row) and its CUDA kernel; "pallas" = the
+    # interleaved table and K0 (the port of the Pallas kernel); both take
+    # their plain versions on CPU tensors; "pallas_interpret" = K0's plain
+    # version; "xla" = plain rank_batch over the occ checkpoints
     rank_kernel: str = "auto"
     # seed interval frontend: "auto" = bucket search only when the table
     # dwarfs the query batch (measured crossover n > 64m — prefer_bucket,
@@ -66,7 +67,11 @@ class Config:
     # "boundary" computes character-flag run boundaries during expansion
     # (no pair sort, +4 boundary-char gathers per pair; global flags, so
     # partitioning can never fragment a run). Both are exact and
-    # parity-tested; engine/seed_mode.py.
+    # parity-tested; engine/seed_mode.py. Any value but "sort" turns
+    # sparse seeding off (choose_seed_plan), so "boundary" runs at stride
+    # 1 on the seed and scan engines; the virtual-slab path (-shard -slabs
+    # n) then runs its own run extraction, dense, as in the JAX package.
+    # No CLI flag: set it in the Config passed to run_engine.
     match_backend: str = "sort"
     # Sparse seeding (MEM mode): sample query seed positions at stride
     # S = min(16, K, L - K + 1) and recover exact match boundaries with a

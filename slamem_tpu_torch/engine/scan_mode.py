@@ -12,8 +12,9 @@ succeeds.
     characters ahead, so a lane warming up for L positions before its chunk
     is EXACT: no saturation repair, no cross-chunk dependence;
   * shortening uses the branchless PSV/NSV pyramid (kernels/lcp_search.py);
-  * every occ query goes through the rank kernel (kernels/rank.py) unless
-    ``Config.rank_kernel`` says otherwise;
+  * every occ query goes through a rank kernel (kernels/rank.py): by
+    default the nibble-SWAR kernel, as the JAX package's ``"auto"``
+    resolves; ``Config.rank_kernel`` picks another;
   * the per-position intervals at depth exactly L feed the shared
     pair-expansion / diagonal-run backend (engine/seed_mode.py).
 """
@@ -30,7 +31,8 @@ from slamem_tpu_torch.index.lcp import lcp_adjacent
 from slamem_tpu_torch.io.fasta import CODE_N
 from slamem_tpu_torch.kernels.lcp_search import (LcpPyramid, expand,
                                                  parent_depth)
-from slamem_tpu_torch.kernels.rank import (interleaved_rows, rank_rows,
+from slamem_tpu_torch.kernels.rank import (interleaved_rows, nibble_rows,
+                                           rank_rows, rank_rows_nib,
                                            rank_rows_plain)
 
 # Chunk width for chr-scale scans. The capped-depth state at position i is
@@ -51,8 +53,15 @@ def get_pyramid(index: FMIndex) -> LcpPyramid:
 
 
 def _occ_fn(index: FMIndex, rank_kernel: str):
-    """Batched occ(c, j) closure for a ``Config.rank_kernel`` value."""
-    if rank_kernel in ("auto", "pallas"):
+    """Batched occ(c, j) closure for a ``Config.rank_kernel`` value, resolved
+    as the JAX package's ``_want_pallas``: "auto" and "nib" = the nibble
+    table and its kernel, "pallas" = the interleaved table and K0,
+    "pallas_interpret" = K0's plain version, "xla" = rank_batch over the
+    occ checkpoints."""
+    if rank_kernel in ("auto", "nib"):
+        rows = nibble_rows(index)
+        return lambda chars, positions: rank_rows_nib(rows, chars, positions)
+    if rank_kernel == "pallas":
         rows = interleaved_rows(index)
         return lambda chars, positions: rank_rows(rows, chars, positions)
     if rank_kernel == "pallas_interpret":
@@ -61,10 +70,6 @@ def _occ_fn(index: FMIndex, rank_kernel: str):
                                                         positions)
     if rank_kernel == "xla":
         return lambda chars, positions: rank_batch(index, chars, positions)
-    if rank_kernel == "nib":
-        raise NotImplementedError(
-            "rank_kernel='nib' (nibble-SWAR table) is not ported yet "
-            "(ROADMAP A4: nibble-SWAR rank layout)")
     raise ValueError(f"unknown rank_kernel {rank_kernel!r}")
 
 
@@ -178,4 +183,4 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray,
     clock.mark("frontend")
     # FM hits never touch specials: the plain SA is the all-valid view
     return seed_mode.pairs_to_matches(index, lo, width, L, m, cfg, index.sa,
-                                      clock=clock)
+                                      qt=qt, clock=clock)

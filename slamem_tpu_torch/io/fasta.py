@@ -5,9 +5,10 @@ Capability parity with the reference's ``sequence.c``/``tools.c`` layer
 tracking, A/C/G/T/N handling, reverse complement for the ``-b`` strand mode.
 
 Design differences from the reference (which streams bytes in C):
-  * parsing is numpy-vectorized over the whole file buffer (the JAX
-    package's optional C parser, ``slamem_tpu/_native``, has the same
-    contract and is not part of this package);
+  * ``read_fasta`` parses with the port's C scanner
+    (``slamem_tpu_torch/_native/fastaio.c``, built by gcc at first use);
+    ``parse_fasta_bytes`` is the numpy-vectorized plain version with the
+    same contract, which the tests hold the C scanner to;
   * sequences are held as uint8 *code* arrays (A=0 C=1 G=2 T=3, any other
     letter=4 "N", inter-sequence separator=5), the layout every downstream
     stage (packing, index build, engines) consumes directly.
@@ -157,14 +158,17 @@ def parse_fasta_bytes(buf: bytes, source: str = "<bytes>") -> FastaSet:
 
 
 def read_fasta(path: str | os.PathLike) -> FastaSet:
-    """Read a (multi-)FASTA file, transparently gunzipping .gz inputs."""
+    """Read a (multi-)FASTA file, transparently gunzipping .gz inputs, with
+    the native parser (a failed build of it raises)."""
+    from slamem_tpu_torch._native import fastaio
+
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:2] == b"\x1f\x8b":  # gzip magic
         import gzip
 
         buf = gzip.decompress(buf)
-    return parse_fasta_bytes(buf, str(path))
+    return fastaio.parse(buf, str(path))
 
 
 def write_fasta(path: str | os.PathLike, seqs: list[Sequence],

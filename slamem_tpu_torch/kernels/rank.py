@@ -1,19 +1,24 @@
-"""Batched FM-index rank/occ queries over the interleaved table.
+"""Batched FM-index rank/occ queries over one-row-per-query tables.
 
-occ(c, j) = count of char c in bwt[0:j). The BWT is re-blocked into an
-INTERLEAVED table of 128-int32 rows (the layout of the JAX package's
-``slamem_tpu/kernels/rank.py``, bit for bit):
+occ(c, j) = count of char c in bwt[0:j). Two table layouts of the JAX
+package's ``slamem_tpu/kernels/rank.py``, bit for bit:
 
-    row b = [ occ_A, occ_C, occ_G, occ_T at position b*496 |
-              124 words x 4 bytes = 496 BWT symbols, little-endian ]
+    interleaved, 128 int32 words per row (rank_rows, kernel K0):
+        row b = [ occ_A, occ_C, occ_G, occ_T at position b*496 |
+                  124 words x 4 bytes = 496 BWT symbols, little-endian ]
+    nibble, 128 int32 words per row (rank_rows_nib):
+        row b = [ occ_A..occ_T at position b*992 |
+                  124 words x 8 nibbles = 992 symbols, nibble i at bits 4i ]
 
-so one query touches exactly one 512-byte row. ``rank_rows`` launches the
-hand-written CUDA kernel ``csrc/rank.cu`` (the port of the Pallas kernel
-``slamem_tpu/kernels/rank.py::_rank_kernel``) on CUDA tensors and the plain
-PyTorch version ``rank_rows_plain`` on CPU tensors; it never falls back from
-one to the other. The kernel is compiled by ``nvcc`` for sm_90a at first use,
-from the source in this package, into ``kernels/build/`` (git-ignored); it is
-loaded with ctypes through a plain C entry point. Nothing is built or
+so one query touches exactly one row. ``rank_rows`` and ``rank_rows_nib``
+launch the hand-written CUDA kernels of ``csrc/rank.cu`` on CUDA tensors
+(K0 ports the Pallas kernel ``slamem_tpu/kernels/rank.py::_rank_kernel``;
+the nibble kernel ports the XLA function ``rank_rows_nib`` of the same
+file) and their plain PyTorch versions ``rank_rows_plain`` /
+``rank_rows_nib_plain`` on CPU tensors; neither falls back from one to the
+other. The library is compiled by ``nvcc`` for sm_90a at first use, from
+the source in this package, into ``kernels/build/`` (git-ignored), and
+loaded with ctypes through plain C entry points. Nothing is built or
 imported for it when this module is imported.
 """
 
@@ -21,19 +26,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from slamem_tpu_torch._native import build_shared, find_tool
+
 ROW_WORDS = 128     # int32 words per interleaved row (512 B)
 CNT_WORDS = 4       # leading occ counter words
 SYMS_PER_ROW = (ROW_WORDS - CNT_WORDS) * 4  # 496 BWT symbols per row
+NIB_PER_ROW = (ROW_WORDS - CNT_WORDS) * 8   # 992 per nibble-table row
 ROW_BYTES = ROW_WORDS * 4
 
 _SOURCE = Path(__file__).parent / "csrc" / "rank.cu"
@@ -82,60 +86,114 @@ def rank_rows_plain(rows: torch.Tensor, chars: torch.Tensor,
     return base + hits
 
 
+def _build_rows_nib(bwt: torch.Tensor) -> torch.Tensor:
+    """Nibble-packed (rows, 128) int32 occ/BWT table from a uint8 BWT.
+
+    The JAX package's ``_build_rows_nib`` at its default 128 words, bit for
+    bit: its uint32 words all lie below 2^31 (the top nibble is at most 6,
+    the counters count fewer than 2^31 symbols), so the int32 bits equal
+    them. Symbols 0..6 (ACGT, N, SEP, the BWT sentinel and the pad 6) fit a
+    nibble; pad 6 never counts toward an ACGT char. Counters by per-row
+    counts + cumsum.
+    """
+    n = bwt.shape[0]
+    nrows = n // NIB_PER_ROW + 1  # +1: position j == n stays in range
+    pad = nrows * NIB_PER_ROW - n
+    sym = torch.cat([bwt, torch.full((pad,), 6, dtype=torch.uint8,
+                                     device=bwt.device)]).view(nrows,
+                                                               NIB_PER_ROW)
+    per_row = torch.stack([(sym == c).sum(1, dtype=torch.int32)
+                           for c in range(4)], dim=1)
+    prefix = torch.cumsum(per_row, 0, dtype=torch.int32) - per_row
+    nib = sym.view(nrows, ROW_WORDS - CNT_WORDS, 8)
+    words = torch.zeros((nrows, ROW_WORDS - CNT_WORDS), dtype=torch.int32,
+                        device=bwt.device)
+    for i in range(8):          # nibble i of a word at bits 4i..4i+3
+        words |= nib[:, :, i].to(torch.int32) << (4 * i)
+    return torch.cat([prefix, words], dim=1).contiguous()
+
+
+def nibble_rows(index) -> torch.Tensor:
+    """The nibble occ/BWT table of an FMIndex, built once per index."""
+    rows = index.derived.get("rank_rows_nib")
+    if rows is None:
+        rows = index.derived["rank_rows_nib"] = _build_rows_nib(index.bwt)
+    return rows
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of 32-bit values held in int64 (SWAR; torch has no
+    population count). Every intermediate stays below 2^57."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def rank_rows_nib_plain(rows: torch.Tensor, chars: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """occ(c, j) over the nibble table in plain PyTorch: one row gather,
+    then the JAX package's rank_rows_nib SWAR count. The reference the
+    kernel is held to.
+
+    With y = word ^ (c * 0x11111111) and t = y & 0x77777777, the high bit
+    of nibble i of ~((t + 0x77777777) | y) is set iff that nibble of y is
+    zero, i.e. symbol i equals c (adding 7 to a 3-bit value never carries
+    out of its nibble). Words below within // 8 count whole, the boundary
+    word under the mask (1 << 4*(within % 8)) - 1 (0 when within % 8 == 0),
+    later words not at all. 32-bit arithmetic in int64 (torch has no
+    uint32 arithmetic; t + 0x77777777 overflows int32), masked to 32 bits.
+    """
+    nwords = ROW_WORDS - CNT_WORDS
+    p = positions.to(torch.int64)
+    c = chars.to(torch.int64)
+    blk = torch.div(p, NIB_PER_ROW, rounding_mode="floor")
+    within = p - blk * NIB_PER_ROW
+    row = rows[blk]                                       # (batch, 128)
+    base = row.gather(1, c[:, None])[:, 0]
+    w = row[:, CNT_WORDS:].to(torch.int64) & 0xFFFFFFFF   # (batch, nwords)
+    y = w ^ (c * 0x11111111)[:, None]
+    t = y & 0x77777777
+    nz = ~((t + 0x77777777) | y) & 0x88888888
+    widx = torch.arange(nwords, device=rows.device)[None, :]
+    wf = (within // 8)[:, None]
+    pmask = ((1 << (4 * (within % 8))) - 1)[:, None]
+    mask = torch.where(widx < wf, 0xFFFFFFFF,
+                       torch.where(widx == wf, pmask, 0))
+    cnt = popcount32(nz & mask).sum(1)
+    return (base.to(torch.int64) + cnt).to(torch.int32)
+
+
 class _Kernel(NamedTuple):
-    fn: ctypes._CFuncPtr
+    fn: ctypes._CFuncPtr       # slamem_rank_rows (K0)
+    nib_fn: ctypes._CFuncPtr   # slamem_rank_rows_nib
     path: Path
     build_log: str
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the rank "
-                       "kernel is built from source at first use")
-
-
 @functools.cache
 def load_kernel() -> _Kernel:
-    """Build (once per source and flags) and load the rank kernel library.
-
-    The build writes a temporary file and renames it into place, so
-    concurrent first uses never load a half-written library.
-    """
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f"librank_{digest}.so"
-    log = ""
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-                                   str(_SOURCE)], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            log = proc.stdout + proc.stderr
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    fn = ctypes.CDLL(str(path)).slamem_rank_rows
+    """Build (once per source and flags) and load the rank kernel library
+    (both entry points of ``csrc/rank.cu``)."""
+    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    nvcc = find_tool("nvcc", cuda_home / "bin" / "nvcc")
+    path, log = build_shared(nvcc, _NVCC_FLAGS, _SOURCE, _BUILD_DIR, "rank")
+    lib = ctypes.CDLL(str(path))
+    fn = lib.slamem_rank_rows
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return _Kernel(fn, path, log)
+    nib_fn = lib.slamem_rank_rows_nib
+    nib_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    nib_fn.restype = ctypes.c_int
+    return _Kernel(fn, nib_fn, path, log)
 
 
-def _check(rows: torch.Tensor, chars: torch.Tensor,
-           positions: torch.Tensor) -> None:
-    if rows.dtype != torch.int32 or rows.dim() != 2 or \
-            rows.shape[1] != ROW_WORDS or rows.shape[0] < 1:
+def _check(rows: torch.Tensor, chars: torch.Tensor, positions: torch.Tensor,
+           syms_per_row: int) -> None:
+    """Argument check of both wrappers: rows (nrows >= 1, 128) int32,
+    positions inside the table's span of nrows * syms_per_row."""
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[0] < 1 or \
+            rows.shape[1] != ROW_WORDS:
         raise ValueError(f"rows must be (nrows >= 1, {ROW_WORDS}) int32, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
     for name, t in (("chars", chars), ("positions", positions)):
@@ -155,12 +213,28 @@ def _check(rows: torch.Tensor, chars: torch.Tensor,
         pmin, pmax, cmin, cmax = torch.stack(
             [positions.min(), positions.max(), chars.min(), chars.max()]
         ).tolist()
-        span = rows.shape[0] * SYMS_PER_ROW
+        span = rows.shape[0] * syms_per_row
         if pmin < 0 or pmax >= span:
             raise ValueError(f"positions must lie in [0, {span}), got "
                              f"[{pmin}, {pmax}]")
         if cmin < 0 or cmax > 3:
             raise ValueError(f"chars must lie in [0, 3], got [{cmin}, {cmax}]")
+
+
+def _launch(fn, rows: torch.Tensor, chars: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """Launch one entry point on the current stream of the rows' card."""
+    out = torch.empty_like(positions)
+    nq = positions.numel()
+    if nq == 0:
+        return out
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
+                 out.data_ptr(), nq, stream)
+    if err != 0:
+        raise RuntimeError(f"rank kernel launch failed: CUDA error {err}")
+    return out
 
 
 def rank_rows(rows: torch.Tensor, chars: torch.Tensor,
@@ -173,22 +247,34 @@ def rank_rows(rows: torch.Tensor, chars: torch.Tensor,
     and count the launch in ``rank_rows.launches``; CPU tensors take
     ``rank_rows_plain``.
     """
-    _check(rows, chars, positions)
+    _check(rows, chars, positions, SYMS_PER_ROW)
     if rows.device.type == "cpu":
         return rank_rows_plain(rows, chars, positions)
-    kernel = load_kernel()
-    out = torch.empty_like(positions)
-    nq = positions.numel()
-    if nq == 0:
-        return out
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = kernel.fn(rows.data_ptr(), chars.data_ptr(),
-                        positions.data_ptr(), out.data_ptr(), nq, stream)
-    if err != 0:
-        raise RuntimeError(f"rank kernel launch failed: CUDA error {err}")
-    rank_rows.launches += 1
+    out = _launch(load_kernel().fn, rows, chars, positions)
+    if positions.numel():
+        rank_rows.launches += 1
     return out
 
 
 rank_rows.launches = 0
+
+
+def rank_rows_nib(rows: torch.Tensor, chars: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """occ(c, j) batched over a prebuilt nibble table, int32 (batch,).
+
+    ``positions`` must lie in [0, nrows*992). CUDA tensors launch the
+    kernel on the current stream, without synchronising, and count the
+    launch in ``rank_rows_nib.launches``; CPU tensors take
+    ``rank_rows_nib_plain``.
+    """
+    _check(rows, chars, positions, NIB_PER_ROW)
+    if rows.device.type == "cpu":
+        return rank_rows_nib_plain(rows, chars, positions)
+    out = _launch(load_kernel().nib_fn, rows, chars, positions)
+    if positions.numel():
+        rank_rows_nib.launches += 1
+    return out
+
+
+rank_rows_nib.launches = 0

@@ -1,6 +1,6 @@
-"""Port on the card: the CUDA rank kernel, and the scan, seed and
-virtual-slab engines on a CUDA device, against their plain versions / CPU
-runs on the same inputs.
+"""Port on the card: the CUDA rank kernels (K0 and the nibble kernel), and
+the scan, seed (sort and boundary backends) and virtual-slab engines on a
+CUDA device, against their plain versions / CPU runs on the same inputs.
 
 These tests need a CUDA card (marker ``cuda``) and skip without one. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -52,6 +52,79 @@ def test_rank_kernel_equals_plain(cuda):
     assert torch.equal(got, rank_batch(idx, c, p))
     with pytest.raises(ValueError):
         rank.rank_rows(rows, c, p.cpu())
+
+
+@pytest.mark.parametrize("n", [60_000, 250_000])
+def test_nib_kernel_equals_plain(cuda, n):
+    """The nibble kernel == its plain version on random queries and every
+    row edge (row starts, their neighbours, n, the table's last
+    position)."""
+    t = with_n_runs(random_genome(n, seed=160), 2, 30, seed=161)
+    idx = build_index(t, device=cuda)
+    rows = rank.nibble_rows(idx)
+    nib_per = rank.NIB_PER_ROW
+    span = rows.shape[0] * nib_per
+    starts = np.arange(rows.shape[0]) * nib_per
+    rng = np.random.default_rng(162)
+    edge = np.unique(np.clip(np.concatenate(
+        [starts, starts + 1, starts - 1, [0, 1, idx.n - 1, idx.n, span - 1]]),
+        0, span - 1))
+    pos = np.concatenate([rng.integers(0, span, 100_000),
+                          np.repeat(edge, 4)])
+    chars = np.concatenate([rng.integers(0, 4, 100_000),
+                            np.tile(np.arange(4), edge.size)])
+    p = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    c = torch.from_numpy(chars.astype(np.int32)).to(cuda)
+    before = rank.rank_rows_nib.launches
+    got = rank.rank_rows_nib(rows, c, p)
+    torch.cuda.synchronize()
+    assert rank.rank_rows_nib.launches == before + 1
+    assert torch.equal(got, rank.rank_rows_nib_plain(rows, c, p))
+    inside = p <= idx.n
+    assert torch.equal(got[inside], rank_batch(idx, c[inside], p[inside]))
+
+
+def test_scan_auto_launches_the_nib_kernel(cuda):
+    ref = with_n_runs(random_genome(30_000, seed=163), 3, 40, seed=164)
+    qry = mutate(ref, 0.015, 0.0015, seed=165)
+    idx = build_index(ref, device=cuda)
+    got = {}
+    for rk in ("auto", "pallas"):
+        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        m = find_scan_matches(idx, qry, Config(min_length=20, engine="scan",
+                                               rank_kernel=rk))
+        got[rk] = (m, rank.rank_rows_nib.launches, rank.rank_rows.launches)
+    assert got["auto"][1] > 0 and got["auto"][2] == 0
+    assert got["pallas"][1] == 0 and got["pallas"][2] > 0
+    for f in ("refpos", "qpos", "length"):
+        assert np.array_equal(getattr(got["auto"][0], f),
+                              getattr(got["pallas"][0], f))
+
+
+@pytest.mark.parametrize("engine", ["seed", "scan"])
+@pytest.mark.parametrize("cap", [1 << 22, 256])
+def test_boundary_backend_cuda_equals_cpu(cuda, engine, cap):
+    """match_backend="boundary" on the card == on the CPU == the sort
+    backend, in one round and in several."""
+    ref = with_n_runs(random_genome(60_000, seed=166), 3, 40, seed=167)
+    qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=168), 2, 30, seed=169)
+    find = find_seed_matches if engine == "seed" else find_scan_matches
+    cfg = Config(min_length=20, engine=engine, pair_capacity=cap,
+                 match_backend="boundary")
+    got = find(build_index(ref, device=cuda), qry, cfg)
+    want = find(build_index(ref, device="cpu"), qry, cfg)
+    sort = find(build_index(ref, device="cpu"), qry, Config(
+        min_length=20, engine=engine, sparse_seeds="off"))
+    for f in ("refpos", "qpos", "length"):
+        assert np.array_equal(getattr(got, f), getattr(want, f))
+
+    def tuples(m):
+        return sorted(zip(m.refpos.tolist(), m.qpos.tolist(),
+                          m.length.tolist()))
+
+    assert tuples(got) == tuples(sort) and got.length.size > 0
+    assert got.stats["rounds"] == want.stats["rounds"]
+    assert (got.stats["rounds"] > 1) == (cap == 256)
 
 
 def test_scan_slice_cuda_equals_cpu(cuda):

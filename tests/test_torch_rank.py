@@ -1,9 +1,11 @@
-"""Port vs JAX package: the interleaved rank table and occ queries.
+"""Port vs JAX package: the interleaved and nibble rank tables and occ
+queries.
 
 The Pallas kernel runs as the JAX package's own tests run it on the CPU
-(``interpret=True``); the port's ``rank_rows`` takes its plain version for
-CPU tensors. Tolerance: exact — tables and counts are integers and must be
-equal bit for bit. The CUDA kernel itself is checked on the card
+(``interpret=True``); the nibble path is XLA there. The port's
+``rank_rows`` / ``rank_rows_nib`` take their plain versions for CPU
+tensors. Tolerance: exact — tables and counts are integers and must be
+equal bit for bit. The CUDA kernels themselves are checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -19,6 +21,8 @@ import torch
 from slamem_tpu.index.build import build_index as jax_build
 from slamem_tpu.index.build import rank_batch as jax_rank_batch
 from slamem_tpu.kernels.rank import interleaved_rows as jax_rows
+from slamem_tpu.kernels.rank import nibble_rows as jax_nibble_rows
+from slamem_tpu.kernels.rank import rank_nib as jax_rank_nib
 from slamem_tpu.kernels.rank import rank_pallas, rank_rows_xla
 from slamem_tpu.utils.synth import random_genome, with_n_runs
 
@@ -112,18 +116,98 @@ def test_rank_rows_rejects_bad_arguments():
             rank.rank_rows(*args)
 
 
+@pytest.mark.parametrize("n", [300, 991, 992, 993, 1983, 1984, 1985, 2976,
+                               4060, 5000, 9000, 12000])
+def test_nibble_table_equals_jax(n):
+    t = with_n_runs(random_genome(n, seed=n), 2, 10, seed=n + 1)
+    jidx, tidx = _pair(t)
+    want = np.asarray(jax_nibble_rows(jidx, rank.ROW_WORDS))
+    got = rank.nibble_rows(tidx)
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert got.shape == (tidx.n // rank.NIB_PER_ROW + 1, rank.ROW_WORDS)
+    assert np.array_equal(want.view(np.uint32), got.numpy().view(np.uint32))
+    assert rank.nibble_rows(tidx) is got  # built once per index
+
+
+def _nib_edges(n, rows):
+    """Row-edge positions of a nibble table: 0, 1, every row start and its
+    neighbours, n - 1, n and the table's last position."""
+    nib_per = rank.NIB_PER_ROW
+    starts = np.arange(rows.shape[0]) * nib_per
+    pos = np.concatenate([[0, 1, n - 1, n, rows.shape[0] * nib_per - 1],
+                          starts, starts + 1, starts[1:] - 1,
+                          starts + nib_per // 2 + 7])
+    return np.unique(np.clip(pos, 0, rows.shape[0] * nib_per - 1))
+
+
+@pytest.mark.parametrize("n, seed", [(9000, 150), (30000, 170)])
+def test_nib_rank_equals_jax(n, seed):
+    """rank_rows_nib (its plain version, CPU tensors) == JAX rank_nib ==
+    the occ checkpoints' rank_batch, on random queries and row edges."""
+    t = with_n_runs(random_genome(n, seed=seed), 3, 40, seed=seed + 1)
+    jidx, tidx = _pair(t)
+    rows = rank.nibble_rows(tidx)
+    chars, pos = _queries(seed + 2, 2000, jidx.n)
+    edge = _nib_edges(jidx.n, rows)
+    pos = np.concatenate([pos, np.repeat(edge, 4)]).astype(np.int32)
+    chars = np.concatenate([chars, np.tile(np.arange(4), edge.size)]
+                           ).astype(np.int32)
+    want = np.asarray(jax_rank_nib(jidx, jnp.asarray(chars),
+                                   jnp.asarray(pos), rank.ROW_WORDS))
+    c, p = torch.from_numpy(chars), torch.from_numpy(pos)
+    got = rank.rank_rows_nib(rows, c, p)
+    assert got.dtype == torch.int32
+    assert np.array_equal(want, got.numpy())
+    assert np.array_equal(want, rank.rank_rows_nib_plain(rows, c, p).numpy())
+    inside = p <= jidx.n     # past n the table reads pad: occ(c, n)
+    assert np.array_equal(want[inside.numpy()],
+                          rank_batch(tidx, c[inside], p[inside]).numpy())
+
+
+def test_rank_rows_nib_rejects_bad_arguments():
+    tidx = build_index(random_genome(3000, seed=153), device="cpu")
+    rows = rank.nibble_rows(tidx)
+    c = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    p = torch.tensor([0, 5, 992, tidx.n], dtype=torch.int32)
+    assert rank.rank_rows_nib(rows, c, p).shape == (4,)
+    span = rows.shape[0] * rank.NIB_PER_ROW
+    bad = [
+        (rows.to(torch.int64), c, p),                   # table dtype
+        (rows[:, :4].contiguous(), c, p),               # no symbol words
+        (rows[:, :126].contiguous(), c, p),             # table width
+        (rows[0], c, p),                                # not 2-D
+        (rows, c.to(torch.int64), p),                   # chars dtype
+        (rows, c, p.to(torch.int64)),                   # positions dtype
+        (rows, c[:3], p),                               # shapes differ
+        (rows, c, torch.tensor([0, 5, -1, 7], dtype=torch.int32)),
+        (rows, c, torch.tensor([0, 5, span, 7], dtype=torch.int32)),
+        (rows, torch.tensor([0, 4, 1, 1], dtype=torch.int32), p),
+        (rows, (torch.arange(8, dtype=torch.int32) % 4)[::2], p),  # strided
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            rank.rank_rows_nib(*args)
+
+
 def test_module_import_needs_no_nvcc(tmp_path):
-    """Importing the kernel module builds nothing and needs no toolkit;
-    CPU tensors never touch the kernel library."""
+    """Importing the kernel and native modules builds nothing and needs no
+    toolkit (no nvcc, no gcc on PATH); CPU tensors never touch the kernel
+    library."""
     code = (
         "import torch\n"
         "from slamem_tpu_torch.kernels import rank\n"
         "from slamem_tpu_torch.engine import scan_mode, run\n"
+        "from slamem_tpu_torch.report import format\n"
+        "from slamem_tpu_torch._native import fastaio, matchfmt\n"
         "rows = rank._build_rows(torch.zeros(10, dtype=torch.uint8))\n"
+        "nib = rank._build_rows_nib(torch.zeros(10, dtype=torch.uint8))\n"
         "z = torch.zeros(3, dtype=torch.int32)\n"
         "assert rank.rank_rows(rows, z, z).tolist() == [0, 0, 0]\n"
+        "assert rank.rank_rows_nib(nib, z, z + 9).tolist() == [9, 9, 9]\n"
         "assert rank.load_kernel.cache_info().currsize == 0\n"
-        "assert rank.rank_rows.launches == 0\n"
+        "assert rank.rank_rows.launches == rank.rank_rows_nib.launches == 0\n"
+        "assert fastaio._lib.cache_info().currsize == 0\n"
+        "assert matchfmt._lib.cache_info().currsize == 0\n"
         "import sys; assert 'jax' not in sys.modules\n"
     )
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),

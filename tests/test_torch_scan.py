@@ -3,9 +3,10 @@ and scan matches.
 
 Same inputs (numpy, from seeds) go through both packages on the CPU; the
 JAX scan reaches the Pallas rank kernel in interpret mode
-(``rank_kernel="pallas_interpret"``) or its XLA twin (``"xla"``, the same
-semantics). Tolerance: exact — intervals (lo where width > 0, and width),
-run triples and match tuples are integers and must be equal.
+(``rank_kernel="pallas_interpret"``), its XLA twin (``"xla"``, the same
+semantics) or the nibble-SWAR path (``"auto"`` / ``"nib"``). Tolerance:
+exact — intervals (lo where width > 0, and width), run triples, boundary
+events and match tuples are integers and must be equal.
 """
 
 import jax.numpy as jnp
@@ -40,8 +41,8 @@ def _assert_same_intervals(lo_j, w_j, lo_t, w_t):
     assert np.array_equal(np.asarray(lo_j)[sel], lo_t.numpy()[sel])
 
 
-@pytest.mark.parametrize("rank_kernel", ["auto", "pallas", "pallas_interpret",
-                                         "xla"])
+@pytest.mark.parametrize("rank_kernel", ["auto", "nib", "pallas",
+                                         "pallas_interpret", "xla"])
 def test_scan_intervals_equal_jax_pallas_interpret(rank_kernel):
     # the input of tests/test_rank_kernel.py::test_scan_engine_through_pallas_rank
     ref = with_n_runs(random_genome(1500, seed=144), 2, 25, seed=145)
@@ -68,10 +69,35 @@ def test_scan_intervals_with_hits_equal_jax(L, lane_block):
 
 
 def test_nib_rank_kernel_not_ported():
-    tidx = build_index(random_genome(500, seed=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scan_mode.scan_intervals(tidx, random_genome(100, seed=2), 10,
-                                 rank_kernel="nib")
+    """rank_kernel "nib" and "auto" both run the nibble table (the JAX
+    package's _want_pallas resolution): intervals equal the JAX nib scan's,
+    and an unknown value is refused."""
+    ref = with_n_runs(random_genome(2500, seed=1), 2, 20, seed=3)
+    qry = with_n_runs(mutate(ref, 0.03, 0.003, seed=2), 2, 10, seed=4)
+    jidx, tidx = jax_build(ref), build_index(ref, device="cpu")
+    lo_j, w_j = jscan.scan_intervals(jidx, qry, 10, rank_kernel="nib")
+    for rk in ("nib", "auto"):
+        lo_t, w_t = scan_mode.scan_intervals(tidx, qry, 10, rank_kernel=rk)
+        _assert_same_intervals(lo_j, w_j, lo_t, w_t)
+    assert "rank_rows_nib" in tidx.derived
+    assert "rank_rows" not in tidx.derived     # K0's table was never built
+    with pytest.raises(ValueError, match="rank_kernel"):
+        scan_mode.scan_intervals(tidx, qry, 10, rank_kernel="nibble")
+
+
+@pytest.mark.parametrize("rank_kernel", ["auto", "nib", "pallas"])
+def test_find_scan_matches_rank_kernels_equal_jax(rank_kernel):
+    """The scan's match set through each rank path == the JAX package's
+    find_scan_matches through its default ("auto" = nib)."""
+    ref = with_n_runs(random_genome(3000, seed=72), 3, 20, seed=73)
+    ref[2000:2300] = ref[400:700]
+    qry = with_n_runs(mutate(ref, 0.02, 0.002, seed=74), 2, 15, seed=75)
+    jcfg = JaxConfig(min_length=14, engine="scan")
+    tcfg = Config(min_length=14, engine="scan", rank_kernel=rank_kernel)
+    want = _tuples(jscan.find_scan_matches(jax_build(ref), qry, jcfg))
+    got = _tuples(scan_mode.find_scan_matches(
+        build_index(ref, device="cpu"), qry, tcfg))
+    assert got == want and len(want) > 0
 
 
 @pytest.mark.parametrize("L,mode", [(11, "mem"), (20, "mem"), (12, "mum"),
@@ -145,8 +171,9 @@ def test_pair_runs_equal_jax_per_block():
 
 def test_multi_round_backend_equals_one_round():
     """A tiny pair capacity splits the query into many rounds; merged runs
-    give the same matches as one round, and an interval wider than the
-    capacity is refused as in the JAX package."""
+    give the same matches as one round, as do the boundary backend's
+    events; an interval wider than the capacity is refused as in the JAX
+    package."""
     ref = random_genome(4000, seed=90)
     ref[3000:3500] = ref[200:700]
     qry = mutate(ref, 0.01, 0.001, seed=91)
@@ -161,6 +188,13 @@ def test_multi_round_backend_equals_one_round():
     with pytest.raises(NotImplementedError, match="pair_capacity"):
         seed_mode.pairs_to_matches(tidx, lo, w, 15, 4,
                                    Config(pair_capacity=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the boundary backend: events instead of sorted pairs, same matches,
+    # one round or many; an unknown backend is refused
+    for cap in (1 << 22, 64):
+        got = _tuples(scan_mode.find_scan_matches(tidx, qry, Config(
+            min_length=15, engine="scan", pair_capacity=cap,
+            match_backend="boundary")))
+        assert got == want
+    with pytest.raises(ValueError, match="match_backend"):
         seed_mode.pairs_to_matches(tidx, lo, w, 15, 4,
-                                   Config(match_backend="boundary"))
+                                   Config(match_backend="flags"))

@@ -372,3 +372,125 @@ def test_seed_equals_scan(L, mode):
     b = seed_mode.apply_mode_filter(
         scan_mode.find_scan_matches(tidx, qry, b_cfg), b_cfg)
     assert _tuples(a) == _tuples(b) and len(a.length) > 0
+
+
+# ---------------------------------------------------------------------------
+# The boundary backend (Config.match_backend = "boundary")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("start,end", [(0, 4096), (700, 2100)])
+def test_expand_flags_core_equal_jax(pair, start, end):
+    """Start / end events of one block == JAX's expand_block_to_boundaries
+    run at capacities sized to the data (its first n_starts / n_ends rows,
+    in expansion order)."""
+    _, qp, jidx, tidx = pair
+    k = 12
+    jrefk, jsa_aug = jseed.seed_table(jidx, k)
+    jqk, jqv = jseed.sampled_query_keys(jnp.asarray(qp), k, 1)
+    lo_j, w_j = jseed._join_intervals(jrefk, jqk, jqv)
+    m = int(lo_j.shape[0])
+    block = m
+    m_off = (m + block + 2) // 2
+    npairs = int(np.asarray(w_j)[start:end].sum())
+    pad = jnp.zeros((block,), jnp.int32)
+    sd, sq, ed, eq, ns, ne, _ = jseed.expand_block_to_boundaries(
+        jidx.text, jnp.asarray(qp), jsa_aug, jnp.concatenate([lo_j, pad]),
+        jnp.concatenate([w_j, pad]), jnp.asarray(start, jnp.int64),
+        jnp.asarray(end, jnp.int64), jnp.asarray(m_off, jnp.int32), k,
+        npairs + 1, npairs + 1, block)
+    _, sa_aug = seed_mode.seed_table(tidx, k)
+    got = seed_mode.expand_block_to_boundaries(
+        tidx.text, torch.from_numpy(qp), sa_aug,
+        torch.from_numpy(np.array(lo_j)), torch.from_numpy(np.array(w_j)),
+        start, end, m_off, k)
+    ns, ne = int(ns), int(ne)
+    assert 0 < ns == got[0].shape[0] and 0 < ne == got[2].shape[0]
+    if (start, end) == (0, m):      # whole runs: one end per start
+        assert ns == ne
+    for a, b, cnt in ((sd, got[0], ns), (sq, got[1], ns), (ed, got[2], ne),
+                      (eq, got[3], ne)):
+        assert b.dtype == torch.int32
+        assert np.array_equal(np.asarray(a)[:cnt], b.numpy())
+
+
+BOUNDARY_CASES = {
+    "one_round": (_strain, dict(min_length=14)),
+    "many_rounds": (_strain, dict(min_length=14, pair_capacity=64,
+                                  position_block=37)),
+    "n_runs_separators": (lambda: (_with_separators(
+        with_n_runs(random_genome(5000, seed=460), 3, 30, seed=461),
+        (900, 2500)), with_n_runs(mutate(random_genome(5000, seed=460),
+                                         0.01, 0.001, seed=462), 2, 20,
+                                  seed=463)), dict(min_length=12)),
+    "low_complexity": (_low_complexity, dict(min_length=10,
+                                             pair_capacity=1 << 14)),
+    "mum": (_repeats, dict(min_length=14, mode="mum", pair_capacity=256)),
+    "mam": (_repeats, dict(min_length=14, mode="mam")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUNDARY_CASES))
+def test_boundary_backend_equal_jax_and_sort(case):
+    """find_seed_matches with match_backend="boundary" == the JAX package's
+    boundary result == the port's sort result (dense, stride 1)."""
+    make, fields = BOUNDARY_CASES[case]
+    ref, qry = make()
+    fields = dict(fields)
+    mode = fields.pop("mode", "mem")
+    jcfg = JaxConfig(mode=JaxMode(mode), match_backend="boundary", **fields)
+    tcfg = Config(mode=MatchMode(mode), match_backend="boundary", **fields)
+    jidx = jax_build(ref)
+    tidx = _port_index(jidx)
+    want = jseed.find_seed_matches(jidx, qry, jcfg)
+    got = seed_mode.find_seed_matches(tidx, qry, tcfg)
+    sort = seed_mode.find_seed_matches(tidx, qry, Config(
+        mode=MatchMode(mode), sparse_seeds="off", **fields))
+    assert _tuples(got) == _tuples(want) == _tuples(sort)
+    assert len(want.length) > 0
+    assert got.stats["stride"] == 1 and got.stats["k"] == want.stats["k"]
+    assert got.stats["pairs"] == want.stats["pairs"] == sort.stats["pairs"]
+    if case == "many_rounds":
+        assert got.stats["rounds"] > 1
+    assert _tuples(seed_mode.apply_mode_filter(got, tcfg)) == _tuples(
+        jseed.apply_mode_filter(want, jcfg))
+
+
+@pytest.mark.parametrize("engine", ["seed", "scan"])
+@pytest.mark.parametrize("mode", ["mem", "mum", "mam"])
+def test_run_engine_boundary_listing_equal_jax(engine, mode):
+    """run_engine with -b over a multi-FASTA pair: the boundary backend's
+    listing bytes == the JAX package's boundary listing == the port's sort
+    listing, one round and many."""
+    from slamem_tpu.engine.run import run_engine as jax_run
+    from slamem_tpu.io.fasta import FastaSet as JaxFastaSet
+    from slamem_tpu.report.format import format_matches as jax_format
+
+    from slamem_tpu_torch.engine.run import run_engine
+    from slamem_tpu_torch.io.fasta import FastaSet
+    from slamem_tpu_torch.report.format import format_matches
+
+    base = with_n_runs(random_genome(3000, seed=470), 3, 20, seed=471)
+    base[2200:2500] = base[300:600]
+    qry = with_n_runs(mutate(base, 0.015, 0.0015, seed=472), 2, 15,
+                      seed=473)
+    refs = (["chrA", "chrB"], [base[:1800], base[1800:]])
+    qrys = (["r1", "r2"], [qry[100:1500], qry[1700:2900]])
+
+    def sets(cls, names, parts):
+        lengths = np.array([len(p) for p in parts], np.int64)
+        return cls(names=list(names), starts=np.cumsum(lengths) - lengths,
+                   lengths=lengths, codes=np.concatenate(parts))
+
+    fields = dict(min_length=14, both_strands=True, engine=engine)
+    want = jax_format(jax_run(sets(JaxFastaSet, *refs),
+                              sets(JaxFastaSet, *qrys),
+                              JaxConfig(mode=JaxMode(mode),
+                                        match_backend="boundary", **fields)))
+    ref_set, qry_set = sets(FastaSet, *refs), sets(FastaSet, *qrys)
+    listings = [format_matches(run_engine(ref_set, qry_set, Config(
+        mode=MatchMode(mode), **fields, **extra), "cpu"))
+        for extra in (dict(match_backend="boundary"),
+                      dict(match_backend="boundary", pair_capacity=128),
+                      {})]
+    assert all(lst == want for lst in listings)
+    assert want.count("\n") > 8
