@@ -3,33 +3,42 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
 Phases, each of which raises on failure (exit status non-zero):
-  1. build the rank kernels (csrc/rank.cu: K0 and the nibble kernel, nvcc,
-     sm_90a) from the checkout;
-  2. hold each kernel against its plain PyTorch version, exact integer
-     equality, and time both: K0 (rank_rows, interleaved table) and the
-     nibble kernel (rank_rows_nib, nibble table), each on the 5 Mbp
-     headline reference's table with >= 4M random (c, j) queries plus the
-     row-edge positions, at the scan engine's batch shape, and on a random
-     200 M-symbol table larger than L2;
+  1. build the rank library (csrc/rank.cu: the standalone K0 and nibble
+     kernels and the scan kernel on both layouts, nvcc, sm_90a) from the
+     checkout;
+  2. hold each standalone rank kernel against its plain PyTorch version,
+     exact integer equality, and time both: K0 (rank_rows, interleaved
+     table) and the nibble kernel (rank_rows_nib, nibble table), each on
+     the 5 Mbp headline reference's table with >= 4M random (c, j) queries
+     plus the row-edge positions, at the old scan batch shape (32,768
+     queries), and on a random 200 M-symbol table larger than L2;
+     2s. the scan kernel (scan_lanes, one warp per lane) on one full 4M
+         chunk of the headline query (strain_pair(5_000_000,
+         seed=20260816, sub_rate=0.015, indel_rate=0.0015)) at ``-l 20``,
+         on each table layout, against the plain lockstep loop
+         (scan_mode._scan_lanes with the layout's plain occ) on the card:
+         lo and width exactly equal; kernel time by CUDA events after a
+         warm-up, the plain run's time and its count of backward-extend
+         attempts, the bound and a latency estimate;
   3. the scan slice end to end through the CLI, ``-engine scan -l 20
-     -device cuda``, on the bench's headline pair
-     (strain_pair(5_000_000, seed=20260816, sub_rate=0.015,
-     indel_rate=0.0015)): the listing must hold exactly 59,101 MEMs (the
-     count the JAX package records in BENCH_DETAIL.json), every one an exact
-     maximal match, and the run (rank_kernel "auto", which resolves to the
-     nibble table as in the JAX package) must have launched the nibble
-     kernel;
-     3k. the same pair through run_engine with ``rank_kernel="pallas"``
-         (K0) on the card: the run must have launched K0 and no nibble
-         kernel, and its listing bytes must equal phase 3's; K0's launches
-         in the kernels line are this run's;
+     -device cuda``, on the headline pair: the listing must hold exactly
+     59,101 MEMs (the count the JAX package records in BENCH_DETAIL.json),
+     every one an exact maximal match, and the run (rank_kernel "auto",
+     which resolves to the nibble table as in the JAX package) must have
+     launched the scan kernel on the nibble table once per 4M chunk and no
+     standalone rank kernel;
+     3k. the same pair through run_engine with ``rank_kernel="pallas"``:
+         the scan kernel on the K0 table once per chunk, no standalone
+         rank kernel, and listing bytes equal to phase 3's;
+     3p. a warm 5 Mbp scan (index built, one call before) under
+         torch.profiler: the device's busy share of the call;
   4. a ~200 kbp multi-FASTA pair with N runs through ``-b``, ``-b -mum`` and
      ``-b -mam``: the listing bytes on ``-device cuda`` and ``-device cpu``
      must be identical;
      4k. the same input through run_engine with ``rank_kernel="pallas"``
-         (K0) on the card, MEM/MUM/MAM, both strands: the run must have
-         launched K0, and the listing bytes must equal phase 4's (nibble)
-         scan bytes;
+         on the card, MEM/MUM/MAM, both strands: the run must have
+         launched the scan kernel on the K0 table, and the listing bytes
+         must equal phase 4's (nibble) scan bytes;
   5. the default engine (seed: K-mer frontend, sparse seeding, endpoint
      extension), through the CLI without ``-engine``, on ``-device cuda``,
      at the bench's sizes, each listing holding exactly the JAX package's
@@ -39,6 +48,9 @@ Phases, each of which raises on failure (exit status non-zero):
      5b. the same pair with ``-mam -l 20``: 59,083;
      5c. ``strain_pair(40_000_000, ...)`` (same seed and rates) at
          ``-l 50``: 286,645, exact and maximal (the chr21-scale stand-in);
+     3c. the same 40 Mbp pair through ``-engine scan -l 50 -device cuda``
+         (10 chunks; its LCP array, 160 MB, is larger than L2): 286,645,
+         listing bytes == 5c's;
      5d. the headline reference against 10 strains
          ``mutate(ref, 0.01 + 0.001 j, 0.001, seed=100 + j)`` as one
          multi-FASTA query at ``-l 30``: 478,358;
@@ -77,11 +89,13 @@ Phases, each of which raises on failure (exit status non-zero):
      6a and 6b print the plan (K, stride, slabs, shift, probes, R, rounds,
      pairs), index build and query seconds, stage seconds, peak device
      memory and the card's name and power limit.
-Phases run in the order 1-3, 3k, 4 with 5e, 4k, 7c, 7d, 5a, 7a, 5b, 5d, 5c,
-7b, 8 (5c), 6c, 6a, 8 (6a), 6b. Prints the card and its power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (each kernel's launches on
-its path, exactness, time, plain time and lower bound), and last
-``{"ok": true, "device": {...}}``. Imports no JAX.
+Phases run in the order 1, 2, 2s, 3, 3k, 3p, 4 with 5e, 4k, 7c, 7d, 5a,
+7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b. Prints the card and
+its power limit (nvidia-smi), a ``{"kernels": [...]}`` line (each
+kernel's launches on its path, exactness, time, plain time and lower
+bound; the standalone rank kernels' path is the scan kernel that runs
+their device function), and last ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -123,6 +137,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 # sheet); the integer pipes are no faster, so ops / this rate is a lower
 # bound on the time of integer work
 SCALAR_OPS_PER_S = 67e12
+# assumed time of one dependent L2 round trip of a warp, with the warp's
+# work between two loads (for the latency estimate only; the measured
+# time per round trip is printed beside it)
+ROUND_TRIP_US = 0.5
 
 
 def _log(msg: str) -> None:
@@ -201,6 +219,131 @@ def _kernel_vs_plain(rank, name: str, rows, chars, positions,
             "plain_ms": plain_ms, "gb_per_s": gbps, "max_abs_err": err,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
+                          lane_block: int) -> dict:
+    """Phase 2s for one table layout: the scan kernel against the plain
+    lockstep loop (the layout's plain occ) on one query chunk ``qt``,
+    exact; kernel time by CUDA events after a warm-up; the plain run's
+    time and backward-extend attempts; the bound (bytes: tables, pyramid,
+    query, 8 B out per position, each once; ops: the rank-row integer work
+    of the attempts) and a latency estimate (dependent round trips per
+    warp slot)."""
+    import torch
+
+    rows = (rank.nibble_rows if layout == "nib" else
+            rank.interleaved_rows)(index)
+    pyr = scan_mode.get_pyramid(index)
+    plain_occ = (rank.rank_rows_nib_plain if layout == "nib" else
+                 rank.rank_rows_plain)
+
+    def kernel():
+        return rank.scan_lanes(rows, layout, index.counts, pyr, qt, L,
+                               lane_block)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    attempts: list[int] = []
+    t0 = time.perf_counter()
+    want = scan_mode._scan_lanes(index, pyr, lambda c, p: plain_occ(
+        rows, c, p), qt, L, lane_block, attempts)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"scan_lanes {layout}: kernel != plain loop "
+                             f"(max abs err {err})")
+    ms = _cuda_ms(kernel, 10)
+    m = qt.numel()
+    S = lane_block + L
+    lanes = -(-m // lane_block)
+    live_steps = sum(min(S, m - g * lane_block) for g in range(lanes))
+    total = sum(attempts)
+    # every failed attempt but the root's shortens (one expansion), and a
+    # step that starts at depth L expands first: ~ the positions at depth L
+    expansions = (total - live_steps) + int((got[1] > 0).sum())
+    round_trips = total + expansions      # each >= one dependent L2 trip
+    props = torch.cuda.get_device_properties(0)
+    per_sm = rank.load_kernel().blocks_per_sm(0 if layout == "k0" else 1)
+    slots = min(lanes, props.multi_processor_count * per_sm * 8)
+    per_slot = round_trips / slots
+    bound_bytes = (rows.numel() * 4 + sum(lv.numel() * 4 for lv in pyr.levels)
+                   + m + 16 + 8 * m)
+    words = rank.ROW_WORDS - rank.CNT_WORDS
+    bound_ops = total * 2 * words * (8 if layout == "nib" else 16)
+    bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    res = {"positions": m, "lanes": lanes, "live_steps": live_steps,
+           "attempts": total, "inner_iterations": len(attempts),
+           "round_trips": round_trips, "blocks_per_sm": per_sm,
+           "warp_slots": slots, "round_trips_per_slot": per_slot,
+           "us_per_round_trip": ms * 1e3 / per_slot,
+           "latency_est_ms": per_slot * ROUND_TRIP_US / 1e3,
+           "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    _log(f"[scan 2s] scan_lanes {layout}: {m} positions, {lanes} lanes, "
+         f"{live_steps} live steps, {total} attempts in "
+         f"{len(attempts)} lockstep iterations; kernel {ms:.6f} ms, plain "
+         f"loop {plain_ms:.3f} ms (with the attempt count); bound "
+         f"{res['bound_ms']:.6f} ms (bytes {bound_bytes}: {bytes_ms:.6f} ms,"
+         f" ops {bound_ops}: {ops_ms:.6f} ms); {per_sm} blocks/SM, "
+         f"{slots} warp slots, {per_slot:.1f} dependent round trips per "
+         f"slot ({round_trips} in all): {res['us_per_round_trip']:.3f} us "
+         f"each as measured, latency estimate {res['latency_est_ms']:.6f} ms"
+         f" at {ROUND_TRIP_US} us; exact")
+    return res
+
+
+def _busy_share(fn) -> dict:
+    """Run fn() once under torch.profiler: wall seconds of the window
+    (ended by a synchronise) and the share of it during which a kernel ran
+    on the card (union of the device events' intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:          # union of intervals, microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"wall_s": wall, "device_events": len(spans),
+            "busy_s": busy * 1e-6,
+            "busy_share": busy * 1e-6 / wall if spans else None}
+
+
+def _reset_launches(rank) -> None:
+    """Every kernel wrapper's launch count to 0."""
+    rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+    rank.scan_lanes.launches = dict.fromkeys(rank.SCAN_LAYOUTS, 0)
+
+
+def _scan_launches(rank, layout: str, want: int, label: str) -> int:
+    """The scan kernel's launches on ``layout`` since the last reset; raises
+    unless they are ``want`` (one per chunk) and no other kernel (the other
+    layout, a standalone rank kernel) was launched."""
+    got = dict(rank.scan_lanes.launches)
+    other = rank.rank_rows.launches + rank.rank_rows_nib.launches + sum(
+        v for k, v in got.items() if k != layout)
+    if got[layout] != want or other:
+        raise AssertionError(f"{label}: scan kernel launches {got}, "
+                             f"standalone rank kernel launches "
+                             f"{rank.rank_rows.launches}, "
+                             f"{rank.rank_rows_nib.launches}; expected "
+                             f"{want} on the {layout} table alone")
+    return got[layout]
 
 
 def _listing_matches(path: str) -> list[tuple[int, int, int]]:
@@ -392,7 +535,7 @@ def run() -> int:
 
     from slamem_tpu_torch.cli.main import main as cli_main
     from slamem_tpu_torch.config import Config, MatchMode
-    from slamem_tpu_torch.engine import scan_mode
+    from slamem_tpu_torch.engine import scan_mode, seed_mode
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
     from slamem_tpu_torch.kernels import rank
@@ -410,7 +553,7 @@ def run() -> int:
     # 1. build
     t0 = time.perf_counter()
     kernel = rank.load_kernel()
-    _log(f"[build] rank kernels {kernel.path.name} in "
+    _log(f"[build] rank and scan kernels {kernel.path.name} in "
          f"{time.perf_counter() - t0:.3f} s")
     for line in kernel.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -461,8 +604,21 @@ def run() -> int:
                                f"({rows_big.numel() * 4} B > L2)")
         checks[name] = {"big": big, "shape": shape, "hbm": hbm}
         del rows, rows_big
-    del bwt_big, pos_big, rand_pos, rand_c, index
+    del bwt_big, pos_big, rand_pos, rand_c
+
+    # 2s. the scan kernel on one full 4M chunk of the headline query, as
+    # find_scan_matches cuts it, against the plain lockstep loop
+    chunk = seed_mode.query_to_device(qry, "cuda")[1][
+        :scan_mode._SCAN_CHUNK + HEADLINE_L]
+    scans = {layout: _scan_kernel_vs_plain(rank, scan_mode, index, chunk,
+                                           layout, HEADLINE_L, 256)
+             for layout in ("nib", "k0")}
+    if scans["nib"]["attempts"] != scans["k0"]["attempts"]:
+        raise AssertionError("2s: the two layouts' plain loops made "
+                             "different attempts")
+    del chunk, index
     torch.cuda.synchronize()
+    n_chunks = -(-len(seed_mode.pad_query(qry)) // scan_mode._SCAN_CHUNK)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 3. the scan slice end to end at the headline input (rank_kernel
@@ -472,34 +628,31 @@ def run() -> int:
         write_fasta(rp, [Sequence("ref", ref)])
         write_fasta(qp, [Sequence("qry", qry)])
         torch.cuda.reset_peak_memory_stats()
-        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        _reset_launches(rank)
         t0 = time.perf_counter()
         stderr = _cli(cli_main, ["-engine", "scan", "-l", str(HEADLINE_L),
                                  "-device", "cuda", "-v", "-o", out, rp, qp])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"rank_rows_nib": rank.rank_rows_nib.launches}
-        k0_on_nib_path = rank.rank_rows.launches
+        launches = {"scan_lanes_nib": _scan_launches(rank, "nib",
+                                                     n_chunks, "3")}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         stats = _verbose_stats(stderr)
         matches = _listing_matches(out)
         _log(f"[slice] 5 Mbp scan -l {HEADLINE_L}: {len(matches)} matches; "
              f"index build {stats['build_s']} s, query {stats['query_s']} s "
-             f"({stats['mbp_per_s']} Mbp/s), CLI wall {wall:.3f} s; nibble "
-             f"kernel launches {launches['rank_rows_nib']}, K0 launches "
-             f"{k0_on_nib_path}; peak device memory {peak_gib:.3f} GiB")
+             f"({stats['mbp_per_s']} Mbp/s), stage s {stats['stage_s']}, "
+             f"CLI wall {wall:.3f} s; scan kernel (nibble table) launches "
+             f"{launches['scan_lanes_nib']} == chunks, standalone rank "
+             f"kernel launches 0; peak device memory {peak_gib:.3f} GiB")
         if len(matches) != HEADLINE_MATCHES:
             raise AssertionError(f"{len(matches)} matches, expected "
                                  f"{HEADLINE_MATCHES}")
-        if launches["rank_rows_nib"] <= 0 or k0_on_nib_path != 0:
-            raise AssertionError("the scan slice did not run on the nibble "
-                                 "kernel alone")
         _check_maximal(ref, qry, matches)
         _log("[slice] every match exact and maximal")
 
-        # 3k. K0 on a path at full size: the same scan with
-        # rank_kernel="pallas"; K0's launches in the kernels line are these
-        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        # 3k. the same scan with rank_kernel="pallas": the K0 table
+        _reset_launches(rank)
         t0 = time.perf_counter()
         k0_text, k0_st = _engine_phase(
             "k0 3k", read_fasta(rp), read_fasta(qp),
@@ -507,17 +660,28 @@ def run() -> int:
                    min_length=HEADLINE_L), HEADLINE_MATCHES)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches["rank_rows"] = rank.rank_rows.launches
-        nib_on_k0_path = rank.rank_rows_nib.launches
+        launches["scan_lanes_k0"] = _scan_launches(rank, "k0", n_chunks,
+                                                   "3k")
         _log(f"[k0 3k] 5 Mbp scan -l {HEADLINE_L}, rank_kernel=pallas: "
              f"{k0_st['matches']} matches; query {k0_st['query_s']:.3f} s, "
-             f"wall {wall:.3f} s; K0 launches {launches['rank_rows']}, "
-             f"nibble kernel launches {nib_on_k0_path}")
-        if launches["rank_rows"] <= 0 or nib_on_k0_path != 0:
-            raise AssertionError("the K0 scan did not run on K0 alone")
+             f"wall {wall:.3f} s; scan kernel (K0 table) launches "
+             f"{launches['scan_lanes_k0']} == chunks, standalone rank "
+             f"kernel launches 0")
         if k0_text != Path(out).read_bytes():
             raise AssertionError("3k: K0 scan listing != phase 3's")
-        _log("[k0 3k] listing == phase 3's nibble-kernel scan listing")
+        _log("[k0 3k] listing == phase 3's nibble-table scan listing")
+
+        # 3p. the device's busy share of a warm 5 Mbp scan query
+        index = build_index(ref, device="cuda")
+        cfg = Config(engine="scan", min_length=HEADLINE_L)
+        scan_mode.find_scan_matches(index, qry, cfg)
+        prof = _busy_share(
+            lambda: scan_mode.find_scan_matches(index, qry, cfg))
+        _log(f"[profile 3p] warm 5 Mbp scan query: {prof['wall_s']:.6f} s, "
+             f"{prof['device_events']} device events, device busy "
+             f"{prof['busy_s']:.6f} s = {prof['busy_share']} of the call; "
+             f"{smi}")
+        del index
 
         # 4. GPU == CPU listing bytes, multi-FASTA with N runs, both strands
         # planted repeats make some MEMs non-unique, so -mum/-mam filter
@@ -559,16 +723,19 @@ def run() -> int:
         sets2 = (read_fasta(rp2), read_fasta(qp2))
         modes = {(): MatchMode.MEM, ("-mum",): MatchMode.MUM,
                  ("-mam",): MatchMode.MAM}
-        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        _reset_launches(rank)
         k0_bytes = {mode: _engine_phase("k0", *sets2, Config(
             engine="scan", rank_kernel="pallas", both_strands=True,
             min_length=20, mode=mm), None)[0] for mode, mm in modes.items()}
-        k0_4k = rank.rank_rows.launches
-        nib_on_k0_path = rank.rank_rows_nib.launches
-        _log(f"[k0 4k] -engine scan rank_kernel=pallas -b, MEM/MUM/MAM: K0 "
-             f"launches {k0_4k}, nibble kernel launches {nib_on_k0_path}")
-        if k0_4k <= 0 or nib_on_k0_path != 0:
-            raise AssertionError("the K0 scan did not run on K0 alone")
+        k0_4k = rank.scan_lanes.launches["k0"]
+        _log(f"[k0 4k] -engine scan rank_kernel=pallas -b, MEM/MUM/MAM: "
+             f"scan kernel launches {rank.scan_lanes.launches}, standalone "
+             f"rank kernel launches "
+             f"{rank.rank_rows.launches + rank.rank_rows_nib.launches}")
+        if k0_4k <= 0 or rank.scan_lanes.launches["nib"] or \
+                rank.rank_rows.launches or rank.rank_rows_nib.launches:
+            raise AssertionError("the K0 scan did not run on the K0 table "
+                                 "alone")
         for mode, text in k0_bytes.items():
             if text != bytes_cpu[mode][0]:
                 raise AssertionError(f"K0 scan -b {' '.join(mode)}: listing "
@@ -638,6 +805,29 @@ def run() -> int:
                                  CHR21_MATCHES, rp, qp, seed_out)
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[seed 5c] every match exact and maximal")
+        # 3c. the scan engine on the 40 Mbp pair (LCP array > L2)
+        scan40 = os.path.join(tmp, "scan40.txt")
+        _reset_launches(rank)
+        t0 = time.perf_counter()
+        stderr = _cli(cli_main, ["-engine", "scan", "-l", str(CHR21_L),
+                                 "-device", "cuda", "-v", "-o", scan40, rp,
+                                 qp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunks40 = -(-len(seed_mode.pad_query(qry)) // scan_mode._SCAN_CHUNK)
+        n40 = _scan_launches(rank, "nib", chunks40, "3c")
+        st40 = _verbose_stats(stderr)
+        n_scan40 = len(_listing_matches(scan40))
+        _log(f"[scan 3c] 40 Mbp scan -l {CHR21_L}: {n_scan40} matches; index "
+             f"build {st40['build_s']} s, query {st40['query_s']} s "
+             f"({st40['mbp_per_s']} Mbp/s), stage s {st40['stage_s']}, CLI "
+             f"wall {wall:.3f} s; scan kernel launches {n40} == chunks")
+        if n_scan40 != CHR21_MATCHES:
+            raise AssertionError(f"3c: {n_scan40} matches, expected "
+                                 f"{CHR21_MATCHES}")
+        if Path(scan40).read_bytes() != Path(seed_out).read_bytes():
+            raise AssertionError("3c: scan listing != 5c's seed listing")
+        _log("[scan 3c] listing == 5c's")
         torch.cuda.synchronize()
         _log("[seed] " + json.dumps(seed, sort_keys=True))
         # 7b. the boundary backend at 5c; 8. the native host paths at 5c
@@ -716,23 +906,45 @@ def run() -> int:
              f"{c['hbm']['ms']:.6f} ms ({c['hbm']['gb_per_s']:.2f} GB/s, "
              f"bound {c['hbm']['bound_ms']:.6f} ms) vs plain "
              f"{c['hbm']['plain_ms']:.6f} ms")
-    replaces = {"rank_rows": "slamem_tpu/kernels/rank.py:87",
-                "rank_rows_nib": "slamem_tpu/kernels/rank.py:253"}
-    # times at the shape the main path gives each kernel: the 5 Mbp scan's
-    # batch (phase 3 for nib, 3k for K0, whose launches these are)
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": "slamem_tpu_torch/kernels/csrc/rank.cu",
-        "replaces": replaces[name],
-        "launches": launches[name],
-        "max_abs_err": max(c[k]["max_abs_err"] for k in c),
-        "ms": c["shape"]["ms"],
-        "plain_ms": c["shape"]["plain_ms"],
-        "bound_ms": c["shape"]["bound_ms"],
-        "bound_by": c["shape"]["bound_by"],
-        "library_ms": None,   # no one PyTorch call computes occ from a row
-    } for name, c in checks.items()]}))
+    for layout, c in scans.items():
+        _log(f"[scan 2s] scan_lanes_{layout}: one 4M chunk {c['ms']:.6f} ms "
+             f"vs plain loop {c['plain_ms']:.3f} ms; bound "
+             f"{c['bound_ms']:.6f} ms ({c['bound_by']}), latency estimate "
+             f"{c['latency_est_ms']:.6f} ms; {smi}")
+    source = "slamem_tpu_torch/kernels/csrc/rank.cu"
+    scan_tpu = "slamem_tpu/engine/scan_mode.py:90"
+    kernels = []
+    # the standalone kernels at the old scan batch shape (32,768 queries);
+    # on the main path their device function runs inside the scan kernel
+    # of the same layout, whose launches (phases 3k and 3) these are
+    for name, c, layout, fn, tpu in (
+            ("rank_rows", checks["rank_rows"], "k0", "occ2_k0_warp",
+             "slamem_tpu/kernels/rank.py:87"),
+            ("rank_rows_nib", checks["rank_rows_nib"], "nib",
+             "occ2_nib_warp", "slamem_tpu/kernels/rank.py:253")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": tpu,
+            "path": f"scan_lanes_{layout} (device function {fn})",
+            "launches": launches[f"scan_lanes_{layout}"],
+            "max_abs_err": max(c[k]["max_abs_err"] for k in c),
+            "ms": c["shape"]["ms"], "plain_ms": c["shape"]["plain_ms"],
+            "bound_ms": c["shape"]["bound_ms"],
+            "bound_by": c["shape"]["bound_by"],
+            "library_ms": None})   # no one PyTorch call computes occ
+    # the scan kernel on one full 4M chunk (2s); launches: phase 3 / 3k
+    for layout, tpu in (("k0", "slamem_tpu/kernels/rank.py:87"),
+                        ("nib", "slamem_tpu/kernels/rank.py:253")):
+        c = scans[layout]
+        kernels.append({
+            "name": f"scan_lanes_{layout}", "route": "cuda",
+            "source": source, "replaces": f"{tpu} + {scan_tpu}",
+            "launches": launches[f"scan_lanes_{layout}"],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None})   # no PyTorch call runs a backward search
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

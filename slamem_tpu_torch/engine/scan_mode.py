@@ -2,24 +2,32 @@
 shortening (port of ``slamem_tpu/engine/scan_mode.py``).
 
 Thousands of lanes (one per query chunk of ``lane_block`` positions) run the
-reference's right-to-left state machine in lockstep: backward-extend with
-occ lookups, and on failure climb parent LCP intervals until the step
-succeeds.
+reference's right-to-left state machine: backward-extend with occ lookups,
+and on failure climb parent LCP intervals until the step succeeds.
 
   * the match depth is CAPPED at L (the minimum match length). The capped
     state at position i — the SA interval of the longest prefix of
     q[i:i+L] that occurs in the reference — is a pure function of the L
     characters ahead, so a lane warming up for L positions before its chunk
     is EXACT: no saturation repair, no cross-chunk dependence;
-  * shortening uses the branchless PSV/NSV pyramid (kernels/lcp_search.py);
-  * every occ query goes through a rank kernel (kernels/rank.py): by
-    default the nibble-SWAR kernel, as the JAX package's ``"auto"``
-    resolves; ``Config.rank_kernel`` picks another;
+  * shortening uses the PSV/NSV pyramid (kernels/lcp_search.py);
+  * ``scan_intervals`` routes on ``Config.rank_kernel`` and the index's
+    device. On a CUDA index, "auto" and "nib" launch the scan kernel
+    ``kernels.rank.scan_lanes`` on the nibble table and "pallas" on the
+    interleaved (K0) table: one launch per call, one warp per lane running
+    every step, the occ rows and the pyramid read inside. "pallas_interpret"
+    and "xla" on any device, and every value on the CPU, run the plain
+    lockstep loop ``_scan_lanes`` (the reference the kernel is held to),
+    with the occ closure of ``_occ_fn``: on the CPU the rank wrappers take
+    their plain versions. These are explicit plain paths, as the JAX
+    package's ``_want_pallas`` names them; an unknown value raises;
   * the per-position intervals at depth exactly L feed the shared
     pair-expansion / diagonal-run backend (engine/seed_mode.py).
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -33,7 +41,8 @@ from slamem_tpu_torch.kernels.lcp_search import (LcpPyramid, expand,
                                                  parent_depth)
 from slamem_tpu_torch.kernels.rank import (interleaved_rows, nibble_rows,
                                            rank_rows, rank_rows_nib,
-                                           rank_rows_plain)
+                                           rank_rows_nib_plain,
+                                           rank_rows_plain, scan_lanes)
 
 # Chunk width for chr-scale scans. The capped-depth state at position i is
 # a pure function of q[i:i+L] (the module-docstring exactness argument), so
@@ -83,14 +92,16 @@ def _backward(index: FMIndex, occ_fn, c: torch.Tensor, lo: torch.Tensor,
 
 
 def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
-                L: int, lane_block: int
+                L: int, lane_block: int, attempts: list[int] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lockstep capped-MS scan; returns (lo, width) at depth L per position.
 
     Lane g owns positions [g*B, (g+1)*B) and starts L positions to their
     right (warm-up). Step s visits column S-1-s of every lane; from step L
     on, that column is in the lane's own block and is recorded. The inner
-    loop runs until no lane is pending, one host read per iteration.
+    loop runs until no lane is pending, one host read per iteration. A
+    list ``attempts`` receives the number of pending lanes (backward-extend
+    attempts) of each inner iteration.
     """
     m = qt.shape[0]
     n = index.n
@@ -127,6 +138,8 @@ def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
 
         pending = live
         while bool(pending.any()):
+            if attempts is not None:
+                attempts.append(int(pending.sum()))
             l2, r2 = _backward(index, occ_fn, c, l, r)
             ok = (c < 4) & (l2 < r2)
             succ = pending & ok
@@ -148,15 +161,39 @@ def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
     return out_lo.view(-1)[:m], out_w.view(-1)[:m]
 
 
+def scan_lanes_plain(rows: torch.Tensor, layout: str, counts: torch.Tensor,
+                     pyr: LcpPyramid, qt: torch.Tensor, L: int,
+                     lane_block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``kernels.rank.scan_lanes``: the lockstep loop
+    over the layout's plain occ ("k0": ``rank_rows_plain``, "nib":
+    ``rank_rows_nib_plain``), given what the kernel is given."""
+    plain = rank_rows_plain if layout == "k0" else rank_rows_nib_plain
+    # _scan_lanes reads only n and C[] of the index
+    index = types.SimpleNamespace(n=pyr.n, counts=counts)
+    return _scan_lanes(index, pyr, lambda chars, positions: plain(
+        rows, chars, positions), qt, L, lane_block)
+
+
+# Config.rank_kernel values that launch the scan kernel on a CUDA index,
+# and the table layout each takes
+_KERNEL_LAYOUT = {"auto": "nib", "nib": "nib", "pallas": "k0"}
+
+
 def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
                    L: int, lane_block: int = 256, rank_kernel: str = "auto"
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-position SA intervals of q[i:i+L] (width 0 where absent), int32
-    on the index's device."""
+    on the index's device (routing: the module docstring)."""
     if not isinstance(query_text, torch.Tensor):
         query_text = torch.from_numpy(
             np.ascontiguousarray(query_text, dtype=np.uint8))
-    qt = query_text.to(device=index.device, dtype=torch.uint8)
+    qt = query_text.to(device=index.device, dtype=torch.uint8).contiguous()
+    layout = _KERNEL_LAYOUT.get(rank_kernel)
+    if layout is not None and index.device.type == "cuda":
+        rows = nibble_rows(index) if layout == "nib" else \
+            interleaved_rows(index)
+        return scan_lanes(rows, layout, index.counts, get_pyramid(index), qt,
+                          L, lane_block)
     return _scan_lanes(index, get_pyramid(index),
                        _occ_fn(index, rank_kernel), qt, L, lane_block)
 

@@ -1,4 +1,5 @@
-"""Batched FM-index rank/occ queries over one-row-per-query tables.
+"""Batched FM-index rank/occ queries over one-row-per-query tables, and the
+scan engine's backward search built on them.
 
 occ(c, j) = count of char c in bwt[0:j). Two table layouts of the JAX
 package's ``slamem_tpu/kernels/rank.py``, bit for bit:
@@ -16,10 +17,13 @@ launch the hand-written CUDA kernels of ``csrc/rank.cu`` on CUDA tensors
 the nibble kernel ports the XLA function ``rank_rows_nib`` of the same
 file) and their plain PyTorch versions ``rank_rows_plain`` /
 ``rank_rows_nib_plain`` on CPU tensors; neither falls back from one to the
-other. The library is compiled by ``nvcc`` for sm_90a at first use, from
-the source in this package, into ``kernels/build/`` (git-ignored), and
-loaded with ctypes through plain C entry points. Nothing is built or
-imported for it when this module is imported.
+other. ``scan_lanes`` launches the scan kernel (one warp per scan lane,
+the whole capped backward search of ``engine/scan_mode.py::_scan_lanes``
+with the same occ device functions inside) on either layout. The library
+is compiled by ``nvcc`` for sm_90a at first use, from the source in this
+package, into ``kernels/build/`` (git-ignored), and loaded with ctypes
+through plain C entry points. Nothing is built or imported for it when
+this module is imported.
 """
 
 from __future__ import annotations
@@ -164,9 +168,21 @@ def rank_rows_nib_plain(rows: torch.Tensor, chars: torch.Tensor,
     return (base.to(torch.int64) + cnt).to(torch.int32)
 
 
+MAX_LEVELS = 8     # pyramid levels the scan kernel takes by value
+
+
+class _Pyramid(ctypes.Structure):
+    """``Pyramid`` of ``csrc/rank.cu``: level pointers and sizes."""
+    _fields_ = [("level", ctypes.c_void_p * MAX_LEVELS),
+                ("size", ctypes.c_int64 * MAX_LEVELS),
+                ("nlev", ctypes.c_int32)]
+
+
 class _Kernel(NamedTuple):
     fn: ctypes._CFuncPtr       # slamem_rank_rows (K0)
     nib_fn: ctypes._CFuncPtr   # slamem_rank_rows_nib
+    scan_fns: dict             # layout -> slamem_scan_lanes_k0 / _nib
+    blocks_per_sm: ctypes._CFuncPtr  # slamem_scan_lanes_blocks_per_sm
     path: Path
     build_log: str
 
@@ -174,7 +190,7 @@ class _Kernel(NamedTuple):
 @functools.cache
 def load_kernel() -> _Kernel:
     """Build (once per source and flags) and load the rank kernel library
-    (both entry points of ``csrc/rank.cu``)."""
+    (every entry point of ``csrc/rank.cu``)."""
     cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     nvcc = find_tool("nvcc", cuda_home / "bin" / "nvcc")
     path, log = build_shared(nvcc, _NVCC_FLAGS, _SOURCE, _BUILD_DIR, "rank")
@@ -185,7 +201,20 @@ def load_kernel() -> _Kernel:
     nib_fn = lib.slamem_rank_rows_nib
     nib_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
     nib_fn.restype = ctypes.c_int
-    return _Kernel(fn, nib_fn, path, log)
+    scan_fns = {}
+    for layout in SCAN_LAYOUTS:
+        f = getattr(lib, f"slamem_scan_lanes_{layout}")
+        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                      ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        scan_fns[layout] = f
+    blocks_per_sm = lib.slamem_scan_lanes_blocks_per_sm
+    blocks_per_sm.argtypes = [ctypes.c_int]
+    blocks_per_sm.restype = ctypes.c_int
+    return _Kernel(fn, nib_fn, scan_fns, blocks_per_sm, path, log)
 
 
 def _check(rows: torch.Tensor, chars: torch.Tensor, positions: torch.Tensor,
@@ -278,3 +307,95 @@ def rank_rows_nib(rows: torch.Tensor, chars: torch.Tensor,
 
 
 rank_rows_nib.launches = 0
+
+# scan kernel layouts: symbols per table row
+SCAN_LAYOUTS = {"k0": SYMS_PER_ROW, "nib": NIB_PER_ROW}
+
+
+def _scan_args(rows: torch.Tensor, layout: str, counts: torch.Tensor, pyr,
+               qt: torch.Tensor, L: int, lane_block: int) -> None:
+    """Argument check of ``scan_lanes``, from shapes, dtypes and pointers
+    alone (no read of the data): the table and pyramid are an index's of
+    n = pyr.n SA rows, so every position the kernel forms lies in
+    [0, n]."""
+    if layout not in SCAN_LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(SCAN_LAYOUTS)}, "
+                         f"got {layout!r}")
+    n = pyr.n
+    if rows.dtype != torch.int32 or rows.dim() != 2 or \
+            rows.shape != (n // SCAN_LAYOUTS[layout] + 1, ROW_WORDS):
+        raise ValueError(f"rows must be the ({n // SCAN_LAYOUTS[layout] + 1},"
+                         f" {ROW_WORDS}) int32 {layout} table of an index of "
+                         f"{n} rows, got {tuple(rows.shape)} {rows.dtype}")
+    if counts.dtype != torch.int32 or counts.shape != (4,):
+        raise ValueError(f"counts must be (4,) int32, got "
+                         f"{tuple(counts.shape)} {counts.dtype}")
+    if qt.dtype != torch.uint8 or qt.dim() != 1:
+        raise ValueError(f"qt must be 1-D uint8, got {tuple(qt.shape)} "
+                         f"{qt.dtype}")
+    levels = pyr.levels
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"the scan kernel takes 1..{MAX_LEVELS} pyramid "
+                         f"levels, got {len(levels)}")
+    if levels[0].shape != (n + 1,) or n + 1 >= 2**31:
+        raise ValueError(f"pyramid level 0 must hold n + 1 = {n + 1} values,"
+                         f" got {tuple(levels[0].shape)}")
+    for name, t in (("counts", counts), ("qt", qt),
+                    *((f"level {k}", lv) for k, lv in enumerate(levels))):
+        if t.device != rows.device:
+            raise ValueError(f"{name} is on {t.device}, rows on "
+                             f"{rows.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for k, lv in enumerate(levels):
+        if lv.dtype != torch.int32 or lv.dim() != 1 or lv.data_ptr() % 16:
+            raise ValueError(f"pyramid level {k} must be 1-D int32, 16-byte "
+                             "aligned")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+    if L < 1 or lane_block < 1 or L + lane_block >= 2**31:
+        raise ValueError(f"need L >= 1, lane_block >= 1, L + lane_block < "
+                         f"2^31; got {L}, {lane_block}")
+
+
+def scan_lanes(rows: torch.Tensor, layout: str, counts: torch.Tensor, pyr,
+               qt: torch.Tensor, L: int, lane_block: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capped backward-search scan of query codes ``qt``: (lo, width) int32
+    per position, width r - l of the SA interval of q[i:i+L] (0 where it is
+    absent), as ``engine/scan_mode.py::_scan_lanes``.
+
+    ``rows`` is the index's ``layout`` table ("k0": interleaved, "nib":
+    nibble), ``counts`` its C[0..3], ``pyr`` its ``LcpPyramid``. CUDA
+    tensors launch one scan kernel on the current stream (one warp per lane
+    of ``lane_block`` positions), without synchronising, and count the
+    launch in ``scan_lanes.launches[layout]``; CPU tensors take the plain
+    lockstep loop over the layout's plain occ.
+    """
+    _scan_args(rows, layout, counts, pyr, qt, L, lane_block)
+    if rows.device.type == "cpu":
+        from slamem_tpu_torch.engine.scan_mode import scan_lanes_plain
+        return scan_lanes_plain(rows, layout, counts, pyr, qt, L, lane_block)
+    m = qt.numel()
+    out_lo = torch.empty(m, dtype=torch.int32, device=rows.device)
+    out_w = torch.empty_like(out_lo)
+    if m == 0:
+        return out_lo, out_w
+    arg = _Pyramid()
+    arg.nlev = len(pyr.levels)
+    for k, lv in enumerate(pyr.levels):
+        arg.level[k] = lv.data_ptr()
+        arg.size[k] = lv.numel()
+    fn = load_kernel().scan_fns[layout]
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = fn(rows.data_ptr(), counts.data_ptr(), ctypes.addressof(arg),
+                 qt.data_ptr(), m, pyr.n, L, lane_block, out_lo.data_ptr(),
+                 out_w.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
+    scan_lanes.launches[layout] += 1
+    return out_lo, out_w
+
+
+scan_lanes.launches = dict.fromkeys(SCAN_LAYOUTS, 0)

@@ -1,6 +1,7 @@
-"""Port on the card: the CUDA rank kernels (K0 and the nibble kernel), and
-the scan, seed (sort and boundary backends) and virtual-slab engines on a
-CUDA device, against their plain versions / CPU runs on the same inputs.
+"""Port on the card: the CUDA rank kernels (K0 and the nibble kernel), the
+scan kernel (``scan_lanes``, both table layouts), and the scan, seed (sort
+and boundary backends) and virtual-slab engines on a CUDA device, against
+their plain versions / CPU runs on the same inputs.
 
 These tests need a CUDA card (marker ``cuda``) and skip without one. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -17,10 +18,11 @@ import torch
 from slamem_tpu_torch.cli.main import main
 from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
+from slamem_tpu_torch.engine import scan_mode
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
 from slamem_tpu_torch.engine.seed_mode import find_seed_matches
 from slamem_tpu_torch.index.build import build_index, rank_batch
-from slamem_tpu_torch.io.fasta import Sequence, write_fasta
+from slamem_tpu_torch.io.fasta import CODE_SEP, Sequence, write_fasta
 from slamem_tpu_torch.kernels import rank
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
 
@@ -84,21 +86,73 @@ def test_nib_kernel_equals_plain(cuda, n):
     assert torch.equal(got[inside], rank_batch(idx, c[inside], p[inside]))
 
 
+def _reset_launches():
+    rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+    rank.scan_lanes.launches = dict.fromkeys(rank.SCAN_LAYOUTS, 0)
+
+
 def test_scan_auto_launches_the_nib_kernel(cuda):
+    """"auto" launches the scan kernel on the nibble table and no standalone
+    rank kernel; "pallas" launches it on the K0 table; one launch per scan
+    chunk; the two match sets are equal."""
     ref = with_n_runs(random_genome(30_000, seed=163), 3, 40, seed=164)
     qry = mutate(ref, 0.015, 0.0015, seed=165)
     idx = build_index(ref, device=cuda)
     got = {}
     for rk in ("auto", "pallas"):
-        rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+        _reset_launches()
         m = find_scan_matches(idx, qry, Config(min_length=20, engine="scan",
                                                rank_kernel=rk))
-        got[rk] = (m, rank.rank_rows_nib.launches, rank.rank_rows.launches)
-    assert got["auto"][1] > 0 and got["auto"][2] == 0
-    assert got["pallas"][1] == 0 and got["pallas"][2] > 0
+        got[rk] = (m, dict(rank.scan_lanes.launches),
+                   rank.rank_rows.launches + rank.rank_rows_nib.launches)
+    assert got["auto"][1] == {"k0": 0, "nib": 1} and got["auto"][2] == 0
+    assert got["pallas"][1] == {"k0": 1, "nib": 0} and got["pallas"][2] == 0
     for f in ("refpos", "qpos", "length"):
         assert np.array_equal(getattr(got["auto"][0], f),
                               getattr(got["pallas"][0], f))
+
+
+@pytest.mark.parametrize("rank_kernel", ["pallas_interpret", "xla"])
+def test_plain_rank_kernels_run_the_lockstep_loop_on_cuda(cuda, rank_kernel):
+    """The explicit plain values run ``_scan_lanes`` on a CUDA index (no
+    scan kernel) and give the kernel's intervals."""
+    ref = with_n_runs(random_genome(30_000, seed=170), 3, 40, seed=171)
+    qry = mutate(ref, 0.015, 0.0015, seed=172)[:3000]
+    idx = build_index(ref, device=cuda)
+    want = scan_mode.scan_intervals(idx, qry, 20)
+    _reset_launches()
+    got = scan_mode.scan_intervals(idx, qry, 20, rank_kernel=rank_kernel)
+    assert sum(rank.scan_lanes.launches.values()) == 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("L,lane_block", [(20, 256), (12, 64), (33, 32)])
+@pytest.mark.parametrize("layout", ["k0", "nib"])
+@pytest.mark.parametrize("n", [30_000, 250_000])
+def test_scan_lanes_equals_plain_loop(cuda, n, layout, L, lane_block):
+    """The scan kernel == the lockstep loop with the plain occ on the card,
+    full lo and width arrays, on a multi-FASTA query joined by separators
+    with N runs."""
+    ref = with_n_runs(random_genome(n, seed=173), 3, 40, seed=174)
+    mut = with_n_runs(mutate(ref, 0.015, 0.0015, seed=175), 4, 30, seed=176)
+    cut = [0, n // 3, n // 3 + 50, n // 2, n - 1000]
+    qry = np.concatenate([mut[cut[0]:cut[1]], [CODE_SEP],
+                          mut[cut[2]:cut[3]], [CODE_SEP],
+                          mut[cut[4]:]]).astype(np.uint8)
+    idx = build_index(ref, device=cuda)
+    rows = (rank.nibble_rows if layout == "nib" else
+            rank.interleaved_rows)(idx)
+    pyr = scan_mode.get_pyramid(idx)
+    qt = torch.from_numpy(qry).to(cuda)
+    _reset_launches()
+    got = rank.scan_lanes(rows, layout, idx.counts, pyr, qt, L, lane_block)
+    torch.cuda.synchronize()
+    assert rank.scan_lanes.launches[layout] == 1
+    want = scan_mode.scan_lanes_plain(rows, layout, idx.counts, pyr, qt, L,
+                                      lane_block)
+    assert rank.rank_rows.launches + rank.rank_rows_nib.launches == 0
+    assert int((want[1] > 0).sum()) > len(qry) // 4
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 @pytest.mark.parametrize("engine", ["seed", "scan"])

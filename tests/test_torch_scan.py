@@ -68,7 +68,7 @@ def test_scan_intervals_with_hits_equal_jax(L, lane_block):
     _assert_same_intervals(lo_j, w_j, lo_t, w_t)
 
 
-def test_nib_rank_kernel_not_ported():
+def test_nib_and_auto_run_the_nibble_table():
     """rank_kernel "nib" and "auto" both run the nibble table (the JAX
     package's _want_pallas resolution): intervals equal the JAX nib scan's,
     and an unknown value is refused."""
