@@ -35,6 +35,10 @@ Phases, each of which raises on failure (exit status non-zero):
   4. a ~200 kbp multi-FASTA pair with N runs through ``-b``, ``-b -mum`` and
      ``-b -mam``: the listing bytes on ``-device cuda`` and ``-device cpu``
      must be identical;
+     4o. each of those listings holds exactly the brute-force oracle's
+         matches (slamem_tpu_torch.oracle, numpy, every diagonal of every
+         (query, strand) entry, spread over the host's cores): nothing is
+         missing and nothing is extra;
      4k. the same input through run_engine with ``rank_kernel="pallas"``
          on the card, MEM/MUM/MAM, both strands: the run must have
          launched the scan kernel on the K0 table, and the listing bytes
@@ -88,9 +92,24 @@ Phases, each of which raises on failure (exit status non-zero):
          (5e), and ``-shard -b`` alone == the default call.
      6a and 6b print the plan (K, stride, slabs, shift, probes, R, rounds,
      pairs), index build and query seconds, stage seconds, peak device
-     memory and the card's name and power limit.
-Phases run in the order 1, 2, 2s, 3, 3k, 3p, 4 with 5e, 4k, 7c, 7d, 5a,
-7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b. Prints the card and
+     memory and the card's name and power limit;
+  9. the mesh (dist/) on the card at world size 1 over NCCL:
+     9a. the CLI under the launcher variables (JAX_COORDINATOR_ADDRESS =
+         127.0.0.1:<free port>, JAX_NUM_PROCESSES=1, JAX_PROCESS_ID=0; it
+         joins a one-rank NCCL group, rank 0 on cuda:0) on the headline
+         pair at ``-l 20``, plain and with ``-shard``: 59,101 each, bytes
+         == 5a's;
+     9b. config #5 (phase 6's files) through the replicated mesh branch
+         (seed_mode.find_seed_matches_mesh) and the one-slab-per-rank
+         branch (sharded.find_seed_matches_sharded_mesh) called directly
+         with that group's one-rank mesh, so their gathers and reductions
+         run over NCCL on the card: 307,706 each, listing bytes == 6a's;
+         each prints its stage seconds (``gather`` = the collectives),
+         rounds, pairs, peak device memory and the card's name and power
+         limit.
+Phases run in the order 1, 2, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
+5a, 9a, 7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b, 9b. Prints
+the card and
 its power limit (nvidia-smi), a ``{"kernels": [...]}`` line (each
 kernel's launches on its path, exactness, time, plain time and lower
 bound; the standalone rank kernels' path is the scan kernel that runs
@@ -513,6 +532,137 @@ def _native_phase(label: str, rp: str, qp: str, cfg, listing: bytes,
     return res
 
 
+def _listing_entries(text: bytes) -> dict:
+    """A listing's matches per (query name, reverse) header: sets of
+    (reference name or "", 1-based ref pos, 1-based query pos, length)."""
+    out: dict = {}
+    cur = None
+    for line in text.decode().splitlines():
+        if line.startswith(">"):
+            head = line[1:].split()
+            cur = out.setdefault((head[0], head[-1] == "Reverse"
+                                  and len(head) > 1), set())
+            continue
+        f = line.split()
+        cur.add((f[0] if len(f) == 4 else "", *map(int, f[-3:])))
+    return out
+
+
+def _oracle_phase(rp: str, qp: str, listings: dict, L: int) -> dict:
+    """Phase 4o: the brute-force oracle's matches of every (query, strand)
+    entry against the reference text (separators included), MEM then the
+    MUM / MAM filters, == each mode's listing, per entry. The diagonals are
+    split over a pool of the host's cores (spawned, numpy only; the pool
+    ends with the phase)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from slamem_tpu_torch.io.fasta import read_fasta, revcomp_codes
+    from slamem_tpu_torch.oracle import filter_mode, find_mems_codes
+
+    ref_set, qry_set = read_fasta(rp), read_fasta(qp)
+    rtext, rstarts = ref_set.with_separators()
+    names = ref_set.names if len(ref_set.names) > 1 else None
+    codes = {}
+    for qi, name in enumerate(qry_set.names):
+        fwd = qry_set.sequence(qi).codes
+        codes[(name, False)], codes[(name, True)] = fwd, revcomp_codes(fwd)
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers,
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = {}
+        for key, c in codes.items():
+            cuts = np.linspace(-(len(c) - 1), len(rtext),
+                               8 * workers + 1).astype(np.int64)
+            futures[key] = [pool.submit(find_mems_codes, rtext, c, L,
+                                        range(int(a), int(b)))
+                            for a, b in zip(cuts[:-1], cuts[1:])]
+        mems = {key: sorted((t for f in fs for t in f.result()),
+                            key=lambda t: (t[1], t[0]))
+                for key, fs in futures.items()}
+    mem_s = time.perf_counter() - t0
+    counts = {}
+    for mode, text in listings.items():
+        got = _listing_entries(text)
+        for key, c in codes.items():
+            kept = filter_mode(mems[key], rtext, c, mode)
+            r = np.array([t[0] for t in kept], np.int64)
+            seq, local = ref_set.locate_in_text(r, rstarts)
+            want = {(names[s] if names else "", int(lp) + 1, q + 1, ln)
+                    for s, lp, (_, q, ln) in zip(seq.tolist(),
+                                                 local.tolist(), kept)}
+            if got.get(key, set()) != want:
+                raise AssertionError(
+                    f"4o {mode} {key}: listing != oracle ("
+                    f"{len(got.get(key, set()) - want)} extra, "
+                    f"{len(want - got.get(key, set()))} missing)")
+        counts[mode] = sum(len(v) for v in got.values())
+    res = {"oracle_s": mem_s, "total_s": time.perf_counter() - t0,
+           "workers": workers, "cells": len(rtext) * sum(
+               len(c) for c in codes.values()), "matches": counts}
+    _log(f"[oracle 4o] {res['cells']} diagonal cells on {workers} "
+         f"processes in {mem_s:.3f} s (modes filtered, total "
+         f"{res['total_s']:.3f} s); listings == oracle: {counts}")
+    return res
+
+
+def _mesh_listing(ref_set, qry_set, m) -> bytes:
+    """The listing of one engine call's matches on a one-sequence query
+    (run_engine's emission order and formatter)."""
+    from slamem_tpu_torch.engine import seed_mode
+    from slamem_tpu_torch.engine.run import EngineOutput, QueryMatches
+    from slamem_tpu_torch.report.format import format_matches
+
+    _, rstarts = ref_set.with_separators()
+    order = seed_mode._sort_diag_qstart(m.qpos, m.refpos)
+    seq, local = ref_set.locate_in_text(m.refpos[order], rstarts)
+    qm = QueryMatches(query_name=qry_set.names[0], reverse=False,
+                      ref_seq=seq, ref_pos=local, q_pos=m.qpos[order],
+                      length=m.length[order])
+    return format_matches(EngineOutput(ref_set.names, [qm], {})).encode()
+
+
+def _mesh_phase(label: str, fn, index, ref_set, qry_set, cfg, mesh,
+                want: int, listing: bytes, smi: str) -> dict:
+    """Phase 9b: one forced mesh branch on the card; count, listing bytes
+    against ``listing``, stage seconds (``gather`` = the collectives),
+    rounds, pairs and peak device memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = fn(index, qry_set.sequence(0).codes, cfg, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = _mesh_listing(ref_set, qry_set, m)
+    st = {"matches": int(m.length.size), "wall_s": wall,
+          "stage_s": m.stats["stage_s"], "rounds": m.stats["rounds"],
+          "pairs": m.stats["pairs"], "k": m.stats["k"],
+          "stride": m.stats["stride"],
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    stages = " ".join(f"{k} {v:.6f}" for k, v in st["stage_s"].items())
+    _log(f"[mesh {label}] {st['matches']} matches; k={st['k']} "
+         f"stride={st['stride']} rounds={st['rounds']} pairs={st['pairs']};"
+         f" call {wall:.3f} s; stage s: {stages}; peak device memory "
+         f"{st['peak_gib']:.3f} GiB; {smi}")
+    if st["matches"] != want or text != listing:
+        raise AssertionError(f"9b {label}: {st['matches']} matches "
+                             f"(expected {want}) or listing != 6a's")
+    return st
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def run() -> int:
     import torch
 
@@ -718,6 +868,10 @@ def run() -> int:
                 raise AssertionError(f"-b {' '.join(mode)}: seed listing != "
                                      "scan listing")
         _log("[bytes] seed listings == scan listings (-b, -mum, -mam)")
+        # 4o. nothing missing, nothing extra: the brute-force oracle
+        _oracle_phase(rp2, qp2, {
+            "mem": bytes_cpu[()][0], "mum": bytes_cpu[("-mum",)][0],
+            "mam": bytes_cpu[("-mam",)][0]}, 20)
 
         # 4k. K0 on a path: the scan with rank_kernel="pallas" at 200 kbp
         sets2 = (read_fasta(rp2), read_fasta(qp2))
@@ -776,6 +930,32 @@ def run() -> int:
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[seed 5a] listing == scan listing; every match exact and "
              "maximal")
+        # 9a. the CLI under the launcher variables: it joins a one-rank
+        # NCCL group (rank 0 on cuda:0), plain and -shard
+        import torch.distributed as dist
+
+        launcher = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
+                    "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0"}
+        os.environ.update(launcher)
+        mesh_out = os.path.join(tmp, "mesh.txt")
+        mesh_runs = {}
+        for label, flags in (("9a", []), ("9a -shard", ["-shard"])):
+            mesh_runs[label] = _seed_phase(
+                cli_main, label, [*flags, "-l", str(HEADLINE_L)],
+                HEADLINE_MATCHES, rp, qp, mesh_out)
+            if Path(mesh_out).read_bytes() != Path(seed_out).read_bytes():
+                raise AssertionError(f"{label}: listing != 5a's")
+        for var in launcher:
+            del os.environ[var]
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1
+                and torch.cuda.current_device() == 0):
+            raise AssertionError("9a: the CLI did not join a one-rank NCCL "
+                                 "group on cuda:0")
+        _log(f"[mesh 9a] launcher variables: backend "
+             f"{dist.get_backend()}, world {dist.get_world_size()}, rank "
+             f"{dist.get_rank()} on cuda:{torch.cuda.current_device()}; "
+             "plain and -shard listings == 5a's")
         # 7a. the boundary backend at 5a
         boundary = {}
         text, boundary["7a"] = _engine_phase(
@@ -898,6 +1078,26 @@ def run() -> int:
             raise AssertionError("6b: -shard -slabs listing != 6a's")
         _log(f"[chr1 6b] {CHR1_SLABS}-slab listing == replicated listing")
         _log("[chr1] " + json.dumps(chr1, sort_keys=True))
+
+        # 9b. config #5 through both mesh branches over the NCCL group
+        from slamem_tpu_torch.dist import sharded
+        from slamem_tpu_torch.dist.mesh import make_mesh
+
+        mesh = make_mesh(1, "cuda")
+        if mesh.group is None or mesh.device != torch.device("cuda", 0):
+            raise AssertionError("9b: no one-rank group on cuda:0")
+        sets = (read_fasta(rp), read_fasta(qp))
+        index = build_index(sets[0].with_separators()[0],
+                            Config.occ_block, "cuda")
+        for label, fn in (
+                ("9b replicated", seed_mode.find_seed_matches_mesh),
+                ("9b sharded", sharded.find_seed_matches_sharded_mesh)):
+            mesh_runs[label] = _mesh_phase(
+                label, fn, index, *sets, Config(min_length=CHR1_L), mesh,
+                CHR1_MATCHES, Path(seed_out).read_bytes(), smi)
+        del index, sets
+        dist.destroy_process_group()
+        _log("[mesh] " + json.dumps(mesh_runs, sort_keys=True))
 
     for name, c in checks.items():
         _log(f"[rank] {name}: 4M random queries: kernel {c['big']['ms']:.6f}"

@@ -7,10 +7,20 @@
                      [-shard] [-slabs <n>] [-device cuda|cpu] [-v]
                      <reference.fasta> <query.fasta> [more...]
 
-On one device ``-shard -slabs n`` (n > 1) runs the n-slab program
-(dist/sharded.py virtual slabs); ``-shard`` alone and ``-slabs`` without
-``-shard`` run the replicated engine, as the JAX package's CLI does there.
-The multi-device mesh is not ported yet (ROADMAP A9).
+Several processes form one run when the JAX package's launcher variables
+are set in each (JAX_COORDINATOR_ADDRESS = host:port, JAX_NUM_PROCESSES,
+JAX_PROCESS_ID; dist/mesh.py): rank r runs on ``cuda:(r % device_count)``
+over NCCL, or on the CPU over gloo with ``-device cpu``. Then the seed
+engine runs over the ranks (the query rounds data-parallel; with
+``-shard``, one SA-rank slab per rank), every rank computes the same
+result, and only rank 0 writes the listing, ``-save`` and ``-plot``.
+
+On one process ``-shard -slabs n`` (n > 1) runs the n-slab program on its
+device (dist/sharded.py virtual slabs); ``-shard`` alone and ``-slabs``
+without ``-shard`` run the replicated engine, as the JAX package's CLI does
+there. Each process drives one device: one process on a host with several
+cards runs ``-shard`` on one card, where the JAX CLI lays a mesh over every
+chip of the host (the listing is the same).
 """
 
 from __future__ import annotations
@@ -38,9 +48,10 @@ Options:
   -save <file>  save the built index (npz) and exit if no query given
   -load <file>  load a previously saved index instead of rebuilding
   -engine <e>   query engine: seed (default) or scan
-  -shard        shard the index by SA-rank range (BASELINE config #5)
-  -slabs <n>    slab count for -shard; n > 1 runs the n-slab program on
-                the one device
+  -shard        shard the index by SA-rank range over the processes
+                (BASELINE config #5)
+  -slabs <n>    slab count for -shard (default: the process count); n > 1
+                on a single process runs the n-slab program on its device
   -device <d>   cuda (default) or cpu; cuda without a card is an error
   -sparse <s>   sparse seeding for the seed engine: auto (default) or off
   -v            verbose statistics
@@ -164,6 +175,9 @@ def main(argv: list[str] | None = None) -> int:
     # deferred so -h stays fast
     import numpy as np
 
+    from slamem_tpu_torch.dist.mesh import (initialize_multihost,
+                                            is_output_process, make_mesh,
+                                            world_size)
     from slamem_tpu_torch.engine.run import run_engine
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.index.serialize import load_index, save_index
@@ -171,6 +185,13 @@ def main(argv: list[str] | None = None) -> int:
     from slamem_tpu_torch.report.format import format_matches
     from slamem_tpu_torch.utils.device import resolve_device
 
+    # join the process group (when launched as several processes) before
+    # any device work; this also picks the rank's card
+    try:
+        multihost = initialize_multihost(extras["device"])
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     device = resolve_device(extras["device"])  # raises if cuda is missing
     try:
         ref_set = read_fasta(ref_path)
@@ -182,11 +203,8 @@ def main(argv: list[str] | None = None) -> int:
 
     index = None
     if extras["load_index"]:
-        try:
-            index = load_index(extras["load_index"], device)
-        except (OSError, ValueError, KeyError) as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2
+        # a missing or unreadable file raises, as in the JAX CLI
+        index = load_index(extras["load_index"], device)
         if index.n != len(rtext) + 1 or not np.array_equal(
                 index.text[:-1].cpu().numpy(), rtext):
             print("error: loaded index does not match the reference FASTA",
@@ -196,9 +214,11 @@ def main(argv: list[str] | None = None) -> int:
         # otherwise run_engine builds (and times) the index
         index = build_index(rtext, cfg.occ_block, device)
     if extras["save_index"]:
-        save_index(extras["save_index"], index)
-        if cfg.verbose:
-            print(f"index saved to {extras['save_index']}", file=sys.stderr)
+        if is_output_process():
+            save_index(extras["save_index"], index)
+            if cfg.verbose:
+                print(f"index saved to {extras['save_index']}",
+                      file=sys.stderr)
         if not query_paths:
             return 0
 
@@ -214,11 +234,25 @@ def main(argv: list[str] | None = None) -> int:
         query_set = FastaSet(names=names, starts=starts, lengths=lengths,
                              codes=codes)
 
+    # several processes always run on the mesh of all of them; one process
+    # builds one only for -shard, where a -slabs count other than the
+    # process count selects the virtual slabs (the one-rank view)
+    mesh = None
+    if cfg.shard_index or multihost:
+        world = world_size()
+        if (cfg.shard_slabs is not None and cfg.shard_slabs != world
+                and not multihost):
+            mesh = make_mesh(1, device)
+        else:
+            mesh = make_mesh(world, device)
     try:
-        out = run_engine(ref_set, query_set, cfg, device, index=index)
+        out = run_engine(ref_set, query_set, cfg, device, index=index,
+                         mesh=mesh)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if not is_output_process():
+        return 0   # every rank computed the same result; rank 0 writes it
     text = format_matches(out)
     out_path = cfg.out_path or default_out_path(query_paths, cfg)
     if out_path == "-":
@@ -245,11 +279,14 @@ def main(argv: list[str] | None = None) -> int:
         for st in s["searches"]:
             stages = " ".join(f"{name}={sec:.6f}"
                               for name, sec in st["stage_s"].items())
-            if st.get("virtual_slabs"):
-                route = (f"shards={st['shards']} virtual shift={st['shift']} "
+            if "shards" in st:
+                kind = "virtual" if st["virtual_slabs"] else "mesh"
+                route = (f"shards={st['shards']} {kind} shift={st['shift']} "
                          f"probes={st['probes']} R={st['R']}")
             else:
                 route = f"frontend={st.get('frontend', 'scan')}"
+                if "ranks" in st:
+                    route += f" ranks={st['ranks']}"
             print(f"search: k={st['k']} stride={st['stride']} {route} "
                   f"rounds={st['rounds']} pairs={st['pairs']}; "
                   f"stage s: {stages}", file=sys.stderr)

@@ -3,8 +3,9 @@
 
 Load reference → build index → for each query sequence (and strand with -b)
 → search → filter → report, with the search itself delegated to the seed
-engine (the default; ``-shard -slabs n`` runs its virtual-slab form,
-``dist/sharded.py``) or the scan engine (``Config.engine``).
+engine (the default; ``-shard`` runs its sharded form,
+``dist/sharded.py``, and a mesh of several ranks runs it over the ranks,
+``dist/``) or the scan engine (``Config.engine``).
 """
 
 from __future__ import annotations
@@ -16,11 +17,14 @@ import numpy as np
 import torch
 
 from slamem_tpu_torch.config import Config
+from slamem_tpu_torch.dist.mesh import Mesh
 from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
 from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.index.build import FMIndex, build_index
 from slamem_tpu_torch.io.fasta import FastaSet, revcomp_codes
 from slamem_tpu_torch.utils.device import resolve_device, synchronize
+from slamem_tpu_torch.utils.log import NULL_LOG, PhaseLog
+from slamem_tpu_torch.utils.profile import maybe_trace
 
 
 @dataclasses.dataclass
@@ -46,44 +50,58 @@ class EngineOutput:
     stats: dict
 
 
-def _search_one(index: FMIndex, qcodes: np.ndarray,
-                cfg: Config) -> seed_mode.SeedMatches:
+def _search_one(index: FMIndex, qcodes: np.ndarray, cfg: Config,
+                mesh: Mesh | None = None) -> seed_mode.SeedMatches:
     if cfg.engine == "seed":
-        # -shard with more than one slab runs the virtual-slab program on
-        # the one device; -shard alone (one slab) and -slabs without -shard
-        # run the replicated engine, as the JAX package does on one device
-        if cfg.shard_index and (cfg.shard_slabs or 1) > 1:
-            return find_seed_matches_sharded(index, qcodes, cfg,
+        # -shard on a mesh, or with more than one slab, runs the sharded
+        # engine (one slab per rank; the virtual-slab program on one rank);
+        # -shard alone on one device and -slabs without -shard run the
+        # replicated engine, as the JAX package does
+        if cfg.shard_index and (mesh is not None
+                                or (cfg.shard_slabs or 1) > 1):
+            return find_seed_matches_sharded(index, qcodes, cfg, mesh,
                                              n_slabs=cfg.shard_slabs)
-        return seed_mode.find_seed_matches(index, qcodes, cfg)
+        return seed_mode.find_seed_matches(index, qcodes, cfg, mesh=mesh)
     if cfg.engine == "scan":
-        if cfg.shard_index:
+        if mesh is not None:
             raise ValueError(
                 "-engine scan is the single-device parity engine; it does "
-                "not support -shard (use the default seed engine)")
+                "not support -shard or multi-process meshes (use the "
+                "default seed engine)")
         return scan_mode.find_scan_matches(index, qcodes, cfg)
     raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
 def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
                device: str | torch.device,
-               index: FMIndex | None = None) -> EngineOutput:
-    """Search every query sequence (both strands with -b) on ``device``."""
+               index: FMIndex | None = None,
+               mesh: Mesh | None = None) -> EngineOutput:
+    """Search every query sequence (both strands with -b) on ``device``.
+
+    ``mesh`` (dist/mesh.py) runs the seed engine over its ranks; every rank
+    calls run_engine with the same inputs and gets the same output. With
+    ``cfg.verbose`` each phase (index build, query) prints a PhaseLog line
+    (utils/log.py); ``SLAMEM_TRACE_DIR`` traces the queries
+    (utils/profile.py).
+    """
     dev = resolve_device(device)
+    log = (PhaseLog(enabled=True, device_rates=dev.type == "cuda")
+           if cfg.verbose else NULL_LOG)
     t0 = time.perf_counter()
     rtext, rstarts = ref_set.with_separators()
-    if index is None:
-        index = build_index(rtext, cfg.occ_block, dev)
-    elif index.device != dev:
-        raise ValueError(f"index is on {index.device}, run asked for {dev}")
-    synchronize(dev)
+    with log.phase("index_build", bp=len(rtext)):
+        if index is None:
+            index = build_index(rtext, cfg.occ_block, dev)
+        elif index.device != dev:
+            raise ValueError(f"index is on {index.device}, run asked for "
+                             f"{dev}")
+        synchronize(dev)
     t_build = time.perf_counter() - t0
 
     per_query: list[QueryMatches] = []
     searches: list[dict] = []   # stats of each engine call
     total = 0
     qbp = 0
-    t1 = time.perf_counter()
     strands = [False, True] if cfg.both_strands else [False]
 
     def _emit(qi: int, rev: bool, m, qoff: int) -> None:
@@ -98,41 +116,53 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
             ref_seq=seq_id, ref_pos=local, q_pos=qpos, length=length))
         total += int(length.size)
 
-    if query_set.num_seqs > 1 or cfg.both_strands:
-        # Every (sequence, strand) combination joins into ONE
-        # separator-delimited text — a single engine call for the whole
-        # request. MUM/MAM uniqueness is per (sequence, strand), so the
-        # containment filter runs on each entry's slice, whose
-        # query-coordinate range is disjoint from every other entry's.
-        entries = [(qi, rev) for qi in range(query_set.num_seqs)
-                   for rev in strands]
-        parts = []
-        for qi, rev in entries:
-            codes = query_set.sequence(qi).codes
-            parts.append(revcomp_codes(codes) if rev else codes)
-        lengths = np.array([len(p) for p in parts], dtype=np.int64)
-        joined = FastaSet(
-            names=[f"{qi}/{rev}" for qi, rev in entries],
-            starts=np.concatenate(([0], np.cumsum(lengths)[:-1])),
-            lengths=lengths, codes=np.concatenate(parts))
-        qtext, qstarts = joined.with_separators()
-        qbp += int(query_set.lengths.sum()) * len(strands)
-        m = _search_one(index, qtext, cfg)
-        searches.append(m.stats)
-        entry_of_match = np.searchsorted(qstarts, m.qpos, side="right") - 1
-        for e, (qi, rev) in enumerate(entries):  # ref emission order
-            sel = entry_of_match == e
-            sub = seed_mode.apply_mode_filter(seed_mode.SeedMatches(
-                m.refpos[sel], m.qpos[sel], m.length[sel]), cfg)
-            _emit(qi, rev, sub, int(qstarts[e]))
-    else:
-        for qi in range(query_set.num_seqs):
-            qcodes = query_set.sequence(qi).codes
-            qbp += len(qcodes)
-            m = _search_one(index, qcodes, cfg)
-            searches.append(m.stats)
-            _emit(qi, False, seed_mode.apply_mode_filter(m, cfg), 0)
-    synchronize(dev)
+    def _search(qcodes: np.ndarray, **fields):
+        with log.phase("query", bp=len(qcodes), **fields) as rec:
+            m = _search_one(index, qcodes, cfg, mesh)
+            st = m.stats
+            rec.update(pairs=st["pairs"], rounds=st["rounds"],
+                       seed_k=st["k"], stride=st["stride"])
+            if "bytes_min" in st:
+                rec["bytes"] = st["bytes_min"]
+        searches.append(st)
+        return m
+
+    t1 = time.perf_counter()
+    with maybe_trace("query"):
+        if query_set.num_seqs > 1 or cfg.both_strands:
+            # Every (sequence, strand) combination joins into ONE
+            # separator-delimited text — a single engine call for the whole
+            # request. MUM/MAM uniqueness is per (sequence, strand), so the
+            # containment filter runs on each entry's slice, whose
+            # query-coordinate range is disjoint from every other entry's.
+            entries = [(qi, rev) for qi in range(query_set.num_seqs)
+                       for rev in strands]
+            parts = []
+            for qi, rev in entries:
+                codes = query_set.sequence(qi).codes
+                parts.append(revcomp_codes(codes) if rev else codes)
+            lengths = np.array([len(p) for p in parts], dtype=np.int64)
+            joined = FastaSet(
+                names=[f"{qi}/{rev}" for qi, rev in entries],
+                starts=np.concatenate(([0], np.cumsum(lengths)[:-1])),
+                lengths=lengths, codes=np.concatenate(parts))
+            qtext, qstarts = joined.with_separators()
+            qbp += int(query_set.lengths.sum()) * len(strands)
+            m = _search(qtext, entries=len(entries))
+            entry_of_match = np.searchsorted(qstarts, m.qpos,
+                                             side="right") - 1
+            for e, (qi, rev) in enumerate(entries):  # ref emission order
+                sel = entry_of_match == e
+                sub = seed_mode.apply_mode_filter(seed_mode.SeedMatches(
+                    m.refpos[sel], m.qpos[sel], m.length[sel]), cfg)
+                _emit(qi, rev, sub, int(qstarts[e]))
+        else:
+            for qi in range(query_set.num_seqs):
+                qcodes = query_set.sequence(qi).codes
+                qbp += len(qcodes)
+                m = _search(qcodes, seq=query_set.names[qi], reverse=False)
+                _emit(qi, False, seed_mode.apply_mode_filter(m, cfg), 0)
+        synchronize(dev)
     t_query = time.perf_counter() - t1
     stats = {
         "index_build_s": t_build,
@@ -142,6 +172,7 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
         "query_mbp_per_s": (qbp / 1e6) / t_query if t_query > 0 else 0.0,
         "device": str(dev),
         "searches": searches,
+        "phases": log.records,
     }
     return EngineOutput(ref_names=ref_set.names, per_query=per_query,
                         stats=stats)

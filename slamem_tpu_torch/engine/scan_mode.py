@@ -20,7 +20,8 @@ and on failure climb parent LCP intervals until the step succeeds.
     lockstep loop ``_scan_lanes`` (the reference the kernel is held to),
     with the occ closure of ``_occ_fn``: on the CPU the rank wrappers take
     their plain versions. These are explicit plain paths, as the JAX
-    package's ``_want_pallas`` names them; an unknown value raises;
+    package's ``_want_pallas`` names them; any other value runs as
+    "auto" does there;
   * the per-position intervals at depth exactly L feed the shared
     pair-expansion / diagonal-run backend (engine/seed_mode.py).
 """
@@ -63,13 +64,10 @@ def get_pyramid(index: FMIndex) -> LcpPyramid:
 
 def _occ_fn(index: FMIndex, rank_kernel: str):
     """Batched occ(c, j) closure for a ``Config.rank_kernel`` value, resolved
-    as the JAX package's ``_want_pallas``: "auto" and "nib" = the nibble
-    table and its kernel, "pallas" = the interleaved table and K0,
-    "pallas_interpret" = K0's plain version, "xla" = rank_batch over the
-    occ checkpoints."""
-    if rank_kernel in ("auto", "nib"):
-        rows = nibble_rows(index)
-        return lambda chars, positions: rank_rows_nib(rows, chars, positions)
+    as the JAX package's ``_want_pallas``: "pallas" = the interleaved table
+    and K0, "pallas_interpret" = K0's plain version, "xla" = rank_batch over
+    the occ checkpoints, and every other value ("auto", "nib", or one the
+    package does not name) = the nibble table and its kernel."""
     if rank_kernel == "pallas":
         rows = interleaved_rows(index)
         return lambda chars, positions: rank_rows(rows, chars, positions)
@@ -79,7 +77,8 @@ def _occ_fn(index: FMIndex, rank_kernel: str):
                                                         positions)
     if rank_kernel == "xla":
         return lambda chars, positions: rank_batch(index, chars, positions)
-    raise ValueError(f"unknown rank_kernel {rank_kernel!r}")
+    rows = nibble_rows(index)
+    return lambda chars, positions: rank_rows_nib(rows, chars, positions)
 
 
 def _backward(index: FMIndex, occ_fn, c: torch.Tensor, lo: torch.Tensor,
@@ -174,9 +173,10 @@ def scan_lanes_plain(rows: torch.Tensor, layout: str, counts: torch.Tensor,
         rows, chars, positions), qt, L, lane_block)
 
 
-# Config.rank_kernel values that launch the scan kernel on a CUDA index,
-# and the table layout each takes
-_KERNEL_LAYOUT = {"auto": "nib", "nib": "nib", "pallas": "k0"}
+# the table layout on which the scan kernel runs for a Config.rank_kernel
+# value on a CUDA index: "pallas" = K0, the plain values none, every other
+# value the nibble table (_occ_fn's resolution)
+_KERNEL_LAYOUT = {"pallas": "k0", "pallas_interpret": None, "xla": None}
 
 
 def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
@@ -188,7 +188,7 @@ def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
         query_text = torch.from_numpy(
             np.ascontiguousarray(query_text, dtype=np.uint8))
     qt = query_text.to(device=index.device, dtype=torch.uint8).contiguous()
-    layout = _KERNEL_LAYOUT.get(rank_kernel)
+    layout = _KERNEL_LAYOUT.get(rank_kernel, "nib")
     if layout is not None and index.device.type == "cuda":
         rows = nibble_rows(index) if layout == "nib" else \
             interleaved_rows(index)

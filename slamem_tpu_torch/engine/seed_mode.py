@@ -51,6 +51,7 @@ the pair total plans the rounds, and derived tables are cached in
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -864,8 +865,8 @@ def query_to_device(query_text: np.ndarray, device: torch.device
     return qp, torch.from_numpy(qp).to(device)
 
 
-def find_seed_matches(index, query_text: np.ndarray,
-                      cfg: Config) -> SeedMatches:
+def find_seed_matches(index, query_text: np.ndarray, cfg: Config,
+                      mesh=None) -> SeedMatches:
     """All maximal matches of length >= cfg.min_length (mode filters later).
 
     The query is padded to a length bucket (N padding produces no windows)
@@ -873,8 +874,25 @@ def find_seed_matches(index, query_text: np.ndarray,
     -> tables (seed_table, bucket_table, ext_table; cached per index) ->
     frontend (packing + bucket or join search) -> pairs_to_matches.
     ``stats`` carries the plan and the device-synchronised time of each
-    stage.
+    stage. A ``mesh`` of more than one rank (dist/mesh.py) runs the rounds
+    data-parallel over its ranks (pairs_to_matches); with no mesh or one
+    rank the path is the single-device one, as in the JAX package.
     """
+    return _find_seed_matches(index, query_text, cfg,
+                              functools.partial(pairs_to_matches, mesh=mesh))
+
+
+def find_seed_matches_mesh(index, query_text: np.ndarray, cfg: Config,
+                           mesh) -> SeedMatches:
+    """find_seed_matches with the rounds dispatched through the mesh branch
+    (pairs_to_matches_mesh), at any mesh size, one rank included. Every
+    rank passes the same index and query and gets the same matches."""
+    return _find_seed_matches(index, query_text, cfg, functools.partial(
+        pairs_to_matches_mesh, mesh=mesh))
+
+
+def _find_seed_matches(index, query_text: np.ndarray, cfg: Config,
+                       backend) -> SeedMatches:
     clock = StageClock(index.device)
     qp, qt = query_to_device(query_text, index.device)
     clock.mark("upload")
@@ -893,8 +911,8 @@ def find_seed_matches(index, query_text: np.ndarray,
     else:
         lo, width = _join_intervals(refk, qk, qvalid)
     clock.mark("frontend")
-    matches = pairs_to_matches(index, lo, width, k, m_p, cfg, sa_aug, qt=qt,
-                               stride=stride, ext_r=ext_r, clock=clock)
+    matches = backend(index, lo, width, k, m_p, cfg, sa_aug, qt=qt,
+                      stride=stride, ext_r=ext_r, clock=clock)
     k_words = 2 if k > 16 else 1
     matches.stats.update(
         frontend="bucket" if use_bucket else "join",
@@ -904,34 +922,10 @@ def find_seed_matches(index, query_text: np.ndarray,
     return matches
 
 
-def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
-                     m: int, cfg: Config,
-                     sa_aug: torch.Tensor | None = None,
-                     qt: torch.Tensor | None = None, stride: int = 1,
-                     ext_r=None, clock: StageClock | None = None
-                     ) -> SeedMatches:
-    """Shared backend: intervals at depth k -> maximal matches >= min_length.
-
-    One scalar read of the pair total plans the rounds: one round when it
-    fits ``cfg.pair_capacity`` (a memory budget), else the host cuts the
-    width cumsum into rounds that fit, growing the budget to
-    ``pair_capacity_max`` when the total is over 3x it. Each round expands,
-    sorts and compacts on the device; only run triples come back, and the
-    host merges them. At stride > 1 (sparse seeding; ``qt`` = the padded
-    query on the device, ``ext_r`` = ext_table(index)) lo/width, rounds and
-    runs are in sample space until _finalize_strided extends the merged
-    runs. With ``cfg.match_backend="boundary"``, ``qt`` given and stride 1,
-    each round ships start / end events instead (_expand_flags_core), and
-    the host pairs them into runs that need no merge (BoundaryBatch).
-    """
-    if cfg.match_backend not in ("sort", "boundary"):
-        raise ValueError(f"unknown match_backend {cfg.match_backend!r}")
-    use_boundary = (qt is not None and cfg.match_backend == "boundary"
-                    and stride == 1)
-    if sa_aug is None:
-        sa_aug = index.sa  # all rows valid
-    if clock is None:
-        clock = StageClock(index.device)
+def _plan_rounds(lo: torch.Tensor, width: torch.Tensor, m: int, cfg: Config,
+                 stride: int) -> tuple[int, int, list[tuple[int, int]]]:
+    """(pair total, m_off, rounds) of pairs_to_matches, from one scalar
+    read of the pair total (and the width cumsum when it needs rounds)."""
     capacity = int(cfg.pair_capacity)
     total = int(width.sum(dtype=torch.int64))
     if capacity >= _GROWTH_MIN_CAPACITY and total > 3 * capacity:
@@ -952,6 +946,42 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
         cum_h = np.concatenate(([0], torch.cumsum(
             width, 0, dtype=torch.int64).cpu().numpy()))
         blocks = _plan_blocks(cum_h, m_s, capacity, block)
+    return total, m_off, blocks
+
+
+def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
+                     m: int, cfg: Config,
+                     sa_aug: torch.Tensor | None = None,
+                     qt: torch.Tensor | None = None, stride: int = 1,
+                     ext_r=None, clock: StageClock | None = None,
+                     mesh=None) -> SeedMatches:
+    """Shared backend: intervals at depth k -> maximal matches >= min_length.
+
+    One scalar read of the pair total plans the rounds: one round when it
+    fits ``cfg.pair_capacity`` (a memory budget), else the host cuts the
+    width cumsum into rounds that fit, growing the budget to
+    ``pair_capacity_max`` when the total is over 3x it. Each round expands,
+    sorts and compacts on the device; only run triples come back, and the
+    host merges them. At stride > 1 (sparse seeding; ``qt`` = the padded
+    query on the device, ``ext_r`` = ext_table(index)) lo/width, rounds and
+    runs are in sample space until _finalize_strided extends the merged
+    runs. With ``cfg.match_backend="boundary"``, ``qt`` given and stride 1,
+    each round ships start / end events instead (_expand_flags_core), and
+    the host pairs them into runs that need no merge (BoundaryBatch); any
+    other backend name runs the sort backend, as in the JAX package. A
+    ``mesh`` of more than one rank takes pairs_to_matches_mesh.
+    """
+    if mesh is not None and mesh.size > 1:
+        return pairs_to_matches_mesh(index, lo, width, k, m, cfg, sa_aug,
+                                     qt=qt, stride=stride, ext_r=ext_r,
+                                     clock=clock, mesh=mesh)
+    use_boundary = (qt is not None and cfg.match_backend == "boundary"
+                    and stride == 1)
+    if sa_aug is None:
+        sa_aug = index.sa  # all rows valid
+    if clock is None:
+        clock = StageClock(index.device)
+    total, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
     batches = []
     if use_boundary:
         bb = BoundaryBatch()
@@ -970,14 +1000,80 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
             runs = runs.astype(np.int64)
             batches.append(RunBatch(runs[0] - m_off, runs[1], runs[2]))
     clock.mark("expand")
-    if stride == 1:
-        matches = finalize_matches(batches, k, cfg)
-        clock.mark("merge")
-    else:
-        matches = _finalize_strided(batches, qt, ext_r, k, stride, cfg,
-                                    clock)
+    matches = _finish(batches, qt, ext_r, k, stride, cfg, clock)
     matches.stats = {"pairs": total, "k": k, "stride": stride,
                      "rounds": len(blocks), "stage_s": clock.stage_s}
+    return matches
+
+
+def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
+                          k: int, m: int, cfg: Config,
+                          sa_aug: torch.Tensor | None = None,
+                          qt: torch.Tensor | None = None, stride: int = 1,
+                          ext_r=None, clock: StageClock | None = None,
+                          *, mesh) -> SeedMatches:
+    """pairs_to_matches with the rounds data-parallel over ``mesh`` (any
+    size; dist/seed.py): every rank plans the same rounds from the same
+    replicated intervals and takes them ``mesh.size`` at a time, rank r
+    block r of each group (an empty block when the group is short). The
+    run triples (or boundary events) come back gathered in rank order, so
+    every rank merges the same runs (finalize_matches, or
+    _finalize_strided at stride > 1) and holds the same result. Stages:
+    ``expand`` (this rank's blocks) and ``gather`` (the collectives);
+    ``stats['pairs']`` is the summed pair count of the blocks.
+    """
+    from slamem_tpu_torch.dist.seed import (expand_boundaries_gathered,
+                                            expand_runs_gathered)
+
+    use_boundary = (qt is not None and cfg.match_backend == "boundary"
+                    and stride == 1)
+    if sa_aug is None:
+        sa_aug = index.sa  # all rows valid
+    if clock is None:
+        clock = StageClock(index.device)
+    _, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
+    m_s = int(lo.shape[0])
+    batches = []
+    bb = BoundaryBatch()
+    pairs = 0
+    for g in range(0, len(blocks), mesh.size):
+        group = blocks[g:g + mesh.size]
+        start, end = (group[mesh.rank] if mesh.rank < len(group)
+                      else (m_s, m_s))
+        if use_boundary:
+            starts, ends, n = expand_boundaries_gathered(
+                mesh, index.text, qt, sa_aug, lo, width, start, end, m_off,
+                k, clock)
+            ev = torch.cat([starts, ends]).cpu().numpy()   # one fetch
+            ns = int(starts.shape[0])
+            bb.add(ev[:ns, 0], ev[:ns, 1], ev[ns:, 0], ev[ns:, 1])
+        else:
+            runs, counts, n = expand_runs_gathered(
+                mesh, sa_aug, lo, width, start, end, m_off, stride, clock)
+            runs = runs.cpu().numpy().astype(np.int64)
+            # one batch per block: runs abut across blocks, not inside one
+            for part in np.split(runs, np.cumsum(counts)[:-1]):
+                batches.append(RunBatch(part[:, 0] - m_off, part[:, 1],
+                                        part[:, 2]))
+        pairs += int(n)
+        clock.mark("gather")
+    if use_boundary:
+        batches.append(bb.runs(m_off))    # global flags: runs are whole
+    matches = _finish(batches, qt, ext_r, k, stride, cfg, clock)
+    matches.stats = {"pairs": pairs, "k": k, "stride": stride,
+                     "rounds": len(blocks), "ranks": mesh.size,
+                     "stage_s": clock.stage_s}
+    return matches
+
+
+def _finish(batches: list[RunBatch], qt, ext_r, k: int, stride: int,
+            cfg: Config, clock: StageClock) -> SeedMatches:
+    """The host tail of every round plan: merge, then the length filter
+    (stride 1) or the sparse tail (_finalize_strided)."""
+    if stride != 1:
+        return _finalize_strided(batches, qt, ext_r, k, stride, cfg, clock)
+    matches = finalize_matches(batches, k, cfg)
+    clock.mark("merge")
     return matches
 
 

@@ -1,7 +1,8 @@
 """Port on the card: the CUDA rank kernels (K0 and the nibble kernel), the
-scan kernel (``scan_lanes``, both table layouts), and the scan, seed (sort
-and boundary backends) and virtual-slab engines on a CUDA device, against
-their plain versions / CPU runs on the same inputs.
+scan kernel (``scan_lanes``, both table layouts), the scan, seed (sort
+and boundary backends) and virtual-slab engines on a CUDA device, and the
+mesh branches over a one-rank NCCL group, against their plain versions /
+CPU runs / the single-device engine on the same inputs.
 
 These tests need a CUDA card (marker ``cuda``) and skip without one. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -11,22 +12,33 @@ file imports no JAX, so it also runs where JAX is not installed:
 Tolerance: exact — occ counts and match tuples are integers.
 """
 
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from slamem_tpu_torch.cli.main import main
 from slamem_tpu_torch.config import Config
-from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
+from slamem_tpu_torch.dist.mesh import make_mesh
+from slamem_tpu_torch.dist.sharded import (find_seed_matches_sharded,
+                                           find_seed_matches_sharded_mesh)
 from slamem_tpu_torch.engine import scan_mode
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
-from slamem_tpu_torch.engine.seed_mode import find_seed_matches
+from slamem_tpu_torch.engine.seed_mode import (find_seed_matches,
+                                               find_seed_matches_mesh)
 from slamem_tpu_torch.index.build import build_index, rank_batch
 from slamem_tpu_torch.io.fasta import CODE_SEP, Sequence, write_fasta
 from slamem_tpu_torch.kernels import rank
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
 
 pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -246,3 +258,75 @@ def test_cli_save_load_on_cuda(cuda, tmp_path):
         assert main([*extra, "-device", "cuda", "-o", o, rp, qp]) == 0
         outs.append(open(o, "rb").read())
     assert outs[0] == outs[1] == outs[2] and outs[0].count(b"\n") > 1
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL group in this process, destroyed afterwards."""
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        yield make_mesh(1, cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tuples(m):
+    return sorted(zip(m.refpos.tolist(), m.qpos.tolist(), m.length.tolist()))
+
+
+@pytest.mark.parametrize("fields", [dict(min_length=20),
+                                    dict(min_length=20, sparse_seeds="off"),
+                                    dict(min_length=20, pair_capacity=4096)])
+def test_one_rank_nccl_mesh_branches_equal_single_device(nccl_mesh, fields):
+    """The replicated and the one-slab-per-rank mesh branches, their
+    gathers and reductions over a one-rank NCCL group on the card, list
+    the single-device engine's matches (~200 kbp; dense, sparse, several
+    rounds)."""
+    assert nccl_mesh.group is not None and nccl_mesh.device.type == "cuda"
+    ref = with_n_runs(random_genome(200_000, seed=153), 3, 40, seed=154)
+    qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=155), 2, 30, seed=156)
+    idx = build_index(ref, device=nccl_mesh.device)
+    cfg = Config(**fields)
+    want = _tuples(find_seed_matches(idx, qry, cfg))
+    assert len(want) > 0
+    for fn in (find_seed_matches_mesh, find_seed_matches_sharded_mesh):
+        got = fn(idx, qry, cfg, nccl_mesh)
+        assert _tuples(got) == want, fn.__name__
+        assert "gather" in got.stats["stage_s"]
+
+
+def test_cli_launcher_variables_put_rank0_on_cuda0(cuda, tmp_path):
+    """-device cuda under the launcher variables (one process): the CLI
+    joins a one-rank NCCL group on cuda:0 and lists what a plain run lists,
+    with and without -shard."""
+    ref = random_genome(50_000, seed=180)
+    rp, qp = str(tmp_path / "r.fa"), str(tmp_path / "q.fa")
+    write_fasta(rp, [Sequence("r", ref)])
+    write_fasta(qp, [Sequence("q", mutate(ref, 0.01, 0.001, seed=181))])
+    plain = str(tmp_path / "plain.txt")
+    assert main(["-device", "cuda", "-o", plain, rp, qp]) == 0
+    env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:"
+               f"{_free_port()}", JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0",
+               PYTHONPATH=REPO)
+    for flags in ([], ["-shard"]):
+        out = str(tmp_path / "mesh.txt")
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, torch.distributed as dist\n"
+             "from slamem_tpu_torch.cli.main import main\n"
+             "rc = main(sys.argv[1:])\n"
+             "assert dist.get_backend() == 'nccl'\n"
+             "dist.destroy_process_group()\n"
+             "sys.exit(rc)\n",
+             *flags, "-device", "cuda", "-v", "-o", out, rp, qp],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert "device: cuda:0" in proc.stderr
+        assert open(out, "rb").read() == open(plain, "rb").read()

@@ -70,8 +70,8 @@ def test_scan_intervals_with_hits_equal_jax(L, lane_block):
 
 def test_nib_and_auto_run_the_nibble_table():
     """rank_kernel "nib" and "auto" both run the nibble table (the JAX
-    package's _want_pallas resolution): intervals equal the JAX nib scan's,
-    and an unknown value is refused."""
+    package's _want_pallas resolution): intervals equal the JAX nib scan's.
+    A value neither package names runs the nibble path in both."""
     ref = with_n_runs(random_genome(2500, seed=1), 2, 20, seed=3)
     qry = with_n_runs(mutate(ref, 0.03, 0.003, seed=2), 2, 10, seed=4)
     jidx, tidx = jax_build(ref), build_index(ref, device="cpu")
@@ -81,8 +81,10 @@ def test_nib_and_auto_run_the_nibble_table():
         _assert_same_intervals(lo_j, w_j, lo_t, w_t)
     assert "rank_rows_nib" in tidx.derived
     assert "rank_rows" not in tidx.derived     # K0's table was never built
-    with pytest.raises(ValueError, match="rank_kernel"):
-        scan_mode.scan_intervals(tidx, qry, 10, rank_kernel="nibble")
+    lo_j2, w_j2 = jscan.scan_intervals(jidx, qry, 10, rank_kernel="nibble")
+    lo_t, w_t = scan_mode.scan_intervals(tidx, qry, 10, rank_kernel="nibble")
+    _assert_same_intervals(lo_j2, w_j2, lo_t, w_t)
+    assert "rank_rows" not in tidx.derived
 
 
 @pytest.mark.parametrize("rank_kernel", ["auto", "nib", "pallas"])
@@ -189,12 +191,16 @@ def test_multi_round_backend_equals_one_round():
         seed_mode.pairs_to_matches(tidx, lo, w, 15, 4,
                                    Config(pair_capacity=8))
     # the boundary backend: events instead of sorted pairs, same matches,
-    # one round or many; an unknown backend is refused
+    # one round or many; a backend name the JAX package does not know runs
+    # the sort backend in both packages
     for cap in (1 << 22, 64):
         got = _tuples(scan_mode.find_scan_matches(tidx, qry, Config(
             min_length=15, engine="scan", pair_capacity=cap,
             match_backend="boundary")))
         assert got == want
-    with pytest.raises(ValueError, match="match_backend"):
-        seed_mode.pairs_to_matches(tidx, lo, w, 15, 4,
-                                   Config(match_backend="flags"))
+    jwant = _tuples(jscan.find_scan_matches(jax_build(ref), qry, JaxConfig(
+        min_length=15, engine="scan", rank_kernel="xla",
+        match_backend="flags")))
+    got = _tuples(scan_mode.find_scan_matches(tidx, qry, Config(
+        min_length=15, engine="scan", match_backend="flags")))
+    assert got == jwant == want

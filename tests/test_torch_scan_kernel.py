@@ -240,7 +240,8 @@ def test_scan_lanes_on_cpu_runs_the_plain_loop(layout):
 
 def test_cpu_index_routes_to_the_lockstep_loop(monkeypatch):
     """On a CPU index every rank_kernel value runs ``_scan_lanes`` and never
-    the kernel wrapper; an unknown value raises."""
+    the kernel wrapper; a value the JAX package does not name runs the
+    nibble path there, as in the JAX package's ``_want_pallas``."""
     ref, qry = _inputs("n_runs")
     tidx = build_index(ref, device="cpu")
     calls = []
@@ -256,5 +257,9 @@ def test_cpu_index_routes_to_the_lockstep_loop(monkeypatch):
         scan_mode.scan_intervals(tidx, qry, 12, lane_block=64,
                                  rank_kernel=rk)
     assert len(calls) == 5
-    with pytest.raises(ValueError, match="rank_kernel"):
-        scan_mode.scan_intervals(tidx, qry, 12, rank_kernel="nibble")
+    got = scan_mode.scan_intervals(tidx, qry, 12, lane_block=64,
+                                   rank_kernel="nibble")
+    assert len(calls) == 6
+    want = scan_mode.scan_intervals(tidx, qry, 12, lane_block=64,
+                                    rank_kernel="nib")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
