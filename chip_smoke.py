@@ -3,15 +3,29 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
 Phases, each of which raises on failure (exit status non-zero):
-  1. build the rank library (csrc/rank.cu: the standalone K0 and nibble
-     kernels and the scan kernel on both layouts, nvcc, sm_90a) from the
-     checkout;
+  1. build the kernel libraries from the checkout, one nvcc (sm_90a) per
+     source, both started together: the rank library (csrc/rank.cu: the
+     standalone K0 and nibble kernels and the scan kernel on both layouts)
+     and the unpack kernel of the packed upload wire (csrc/unpack2.cu);
   2. hold each standalone rank kernel against its plain PyTorch version,
      exact integer equality, and time both: K0 (rank_rows, interleaved
      table) and the nibble kernel (rank_rows_nib, nibble table), each on
      the 5 Mbp headline reference's table with >= 4M random (c, j) queries
      plus the row-edge positions, at the old scan batch shape (32,768
      queries), and on a random 200 M-symbol table larger than L2;
+     u. the 2-bit packed upload wire (utils/pack2.py) at config #5's
+        sizes, numpy codes from a seed: its 250,000,000-code reference
+        (an N run, separators) and a 50 Mbp query of 10 entries padded to
+        its bucket (50,003,968 codes): codes_to_device == the host codes
+        and the unpack kernel == unpack_codes_plain on the card, byte for
+        byte; times of the whole wire, its host pass (the C pass that
+        packs into pinned memory and finds the specials; numpy's scan for
+        the specials beside it), the pinned copies, the kernel (bound: n/4
+        + 5 s + n bytes) and the plain unpack, against a pageable and a
+        pinned plain copy of the codes; then the edge cases (specials at
+        0 and m_real - 1, a ragged last plane word, none, the 1/8 gate,
+        and past it and a half-N query, which take the plain copy and
+        launch nothing);
      2s. the scan kernel (scan_lanes, one warp per lane) on one full 4M
          chunk of the headline query (strain_pair(5_000_000,
          seed=20260816, sub_rate=0.015, indel_rate=0.0015)) at ``-l 20``,
@@ -62,7 +76,8 @@ Phases, each of which raises on failure (exit status non-zero):
          bytes == CPU bytes.
      5a-5d print the plan (K, stride, frontend, rounds), index build and
      query seconds, each stage's device-synchronised seconds (the CLI's
-     ``-v`` line) and peak device memory;
+     ``-v`` line) and peak device memory; 5a must have launched the
+     unpack kernel exactly twice (the reference and the query uploads);
   7. the boundary match backend (``Config(match_backend="boundary")``,
      dense seeding at stride 1) through run_engine on the card:
      7a. the headline pair at ``-l 20``: 59,101, bytes == 5a's listing;
@@ -107,13 +122,14 @@ Phases, each of which raises on failure (exit status non-zero):
          each prints its stage seconds (``gather`` = the collectives),
          rounds, pairs, peak device memory and the card's name and power
          limit.
-Phases run in the order 1, 2, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
+Phases run in the order 1, 2, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
 5a, 9a, 7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b, 9b. Prints
 the card and
 its power limit (nvidia-smi), a ``{"kernels": [...]}`` line (each
 kernel's launches on its path, exactness, time, plain time and lower
 bound; the standalone rank kernels' path is the scan kernel that runs
-their device function), and last ``{"ok": true, "device": {...}}``.
+their device function; the unpack kernel's launches are 5a's, its times
+phase u's at the query shape), and last ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
 
@@ -128,6 +144,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HEADLINE = dict(n=5_000_000, seed=20260816, sub_rate=0.015,
@@ -146,6 +163,7 @@ CHR1_QUERY_BP = 50_000_000
 CHR1_L = 50
 CHR1_SLABS = 8
 CHR1_MATCHES = 307_706           # chr1_250mbp_l50.matches (== sharded)
+WIRE_N_RUN = slice(100_000_000, 100_050_000)  # phase u's reference N run
 RANDOM_QUERIES = 1 << 22         # 4,194,304 random occ queries
 # a pair capacity under 5c's dense pair total (31M at K=16) but over a
 # third of it, so the rounds do not grow to pair_capacity_max: 2 rounds
@@ -316,6 +334,189 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
     return res
 
 
+def _wire_phase(pack2, label: str, codes, m_real: int) -> dict:
+    """Phase u at one size: the packed upload wire (``codes_to_device``)
+    against the host codes, byte for byte (positions >= m_real are N), the
+    C pass's specials against ``np.flatnonzero``, and the unpack kernel
+    against its plain version on the card on the same wire buffers; then
+    times: the whole wire on the host clock (first call, whose pinned
+    blocks are new, and the best of 3 later calls), its host half
+    (pack_wire: the C pass that packs into pinned memory and finds the
+    specials, the side channel; the C pack alone; beside them the JAX
+    package's numpy scan for the specials), the pinned copies and the
+    kernel (CUDA events), the plain unpack, and the plain uploads of the
+    codes: a pageable copy (``torch.from_numpy(codes).to``) and a pinned
+    copy (staging and transfer apart). Bound: (n/4 + 5 s + n) bytes at
+    the memory rate."""
+    import numpy as np
+    import torch
+
+    from slamem_tpu_torch.kernels.unpack2 import load_kernel
+
+    dev = torch.device("cuda", 0)
+    n, nb = codes.size, codes.size // 4
+    want = torch.from_numpy(codes).clone()
+    want[m_real:] = 4
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    wire_first, got = host_s(lambda: pack2.codes_to_device(codes, m_real,
+                                                           dev))
+    if got is None or not torch.equal(got.cpu(), want):
+        raise AssertionError(f"u {label}: the wire's codes != the host codes")
+    del got
+    wire_s = min(host_s(lambda: pack2.codes_to_device(codes, m_real, dev))[0]
+                 for _ in range(3))
+    scan_s, spec = host_s(lambda: np.flatnonzero(codes[:m_real] >= 4))
+    pack_wire_s, (plane_h, side_h) = host_s(
+        lambda: pack2.pack_wire(codes, m_real, True))
+    c_pack_s, _ = host_s(lambda: pack2.pack_codes_2bit(codes,
+                                                       plane_h.numpy()))
+    pb = torch.empty_like(plane_h, device=dev)
+    side = torch.empty_like(side_h, device=dev)
+
+    def copy():
+        pb.copy_(plane_h, non_blocking=True)
+        side.copy_(side_h, non_blocking=True)
+
+    copy_ms = _cuda_ms(copy, 10)
+    idx, val = pack2.split_side(side)
+    s = idx.numel()
+    if not np.array_equal(idx.cpu().numpy(), spec):
+        raise AssertionError(f"u {label}: the C pass's {s} specials != "
+                             f"np.flatnonzero's {spec.size}")
+    got = pack2.unpack_codes(pb, idx, val, m_real)
+    plain = pack2.unpack_codes_plain(pb, idx, val, m_real)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    if err or not torch.equal(got, plain) or not torch.equal(got.cpu(),
+                                                             want):
+        raise AssertionError(f"u {label}: kernel != plain (max abs err "
+                             f"{err}) or != the host codes")
+    fn = load_kernel().fn
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        if fn(pb.data_ptr(), nb, idx.data_ptr(), val.data_ptr(), s, m_real,
+              got.data_ptr(), stream):
+            raise RuntimeError("unpack kernel launch failed")
+
+    ms = _cuda_ms(raw, 20)
+    wrapper_ms = _cuda_ms(lambda: pack2.unpack_codes(pb, idx, val, m_real),
+                          20)
+    plain_ms = _cuda_ms(lambda: pack2.unpack_codes_plain(pb, idx, val,
+                                                         m_real), 3)
+    del got, plain, pb, side, idx, val
+    pageable_first, dcodes = host_s(lambda: torch.from_numpy(codes).to(dev))
+    pageable_s = min(host_s(lambda: torch.from_numpy(codes).to(dev))[0]
+                     for _ in range(3))
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    stage_s, _ = host_s(lambda: np.copyto(pinned.numpy(), codes))
+    pinned_copy_ms = _cuda_ms(lambda: dcodes.copy_(pinned, non_blocking=True),
+                              10)
+    del dcodes, pinned, plane_h, side_h
+    bound_bytes = nb + 5 * s + n
+    res = {"codes": n, "m_real": m_real, "specials": s,
+           "wire_first_s": wire_first, "wire_s": wire_s,
+           "numpy_spec_scan_s": scan_s, "c_pack_s": c_pack_s,
+           "pack_wire_s": pack_wire_s, "copy_ms": copy_ms,
+           "copy_gb_per_s": (nb + 5 * s) / (copy_ms * 1e-3) / 1e9,
+           "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "pageable_first_s": pageable_first, "pageable_s": pageable_s,
+           "pinned_stage_s": stage_s, "pinned_copy_ms": pinned_copy_ms,
+           "max_abs_err": err, "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    _log(f"[wire u] {label}: {n} codes, m_real {m_real}, {s} specials; "
+         f"wire {wire_s:.6f} s (first call {wire_first:.6f} s) = host "
+         f"pack_wire {pack_wire_s:.6f} s (C pack alone {c_pack_s:.6f} s; "
+         f"numpy's scan for the specials {scan_s:.6f} s) + pinned copy "
+         f"{copy_ms:.6f} ms ({res['copy_gb_per_s']:.2f} GB/s) + kernel "
+         f"{ms:.6f} ms (wrapper {wrapper_ms:.6f} ms, plain unpack "
+         f"{plain_ms:.6f} ms, bound {res['bound_ms']:.6f} ms); plain "
+         f"uploads of the codes: pageable {pageable_s:.6f} s (first "
+         f"{pageable_first:.6f} s), pinned copy {pinned_copy_ms:.6f} ms + "
+         f"staging {stage_s:.6f} s; kernel == plain == host codes")
+    return res
+
+
+def _wire_edges(pack2, seed_mode) -> None:
+    """Phase u's edge cases on the card, each against the host codes:
+    specials at position 0 and m_real - 1, a ragged last plane word (nb %
+    4 != 0) with a special and the tail in it, no specials, exactly the
+    1/8 gate (the wire), one past it and a half-N query (the plain route:
+    ``codes_to_device`` is None, ``query_to_device`` copies, no launch)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(HEADLINE["seed"])
+    m = 40_003
+    base = rng.integers(0, 4, m).astype(np.uint8)
+    cases = {}
+    q = base.copy()
+    q[[0, m - 1]] = [5, 4]
+    cases["first_last"] = q
+    cases["none"] = base
+    for name, k in (("gate", m // 8), ("gate_plus_one", m // 8 + 1)):
+        q = base.copy()
+        q[rng.choice(m, k, replace=False)] = 4
+        cases[name] = q
+    q = base.copy()
+    q[: m // 2] = 4
+    cases["half_n"] = q
+    for name, q in cases.items():
+        plain_route = name in ("gate_plus_one", "half_n")
+        before = pack2.unpack_codes.launches
+        qp, qt = seed_mode.query_to_device(q, dev)
+        direct = pack2.codes_to_device(qp, m, dev)
+        torch.cuda.synchronize()
+        if (direct is None) != plain_route or not np.array_equal(
+                qt.cpu().numpy(), qp) or pack2.unpack_codes.launches != \
+                before + 2 * (not plain_route):
+            raise AssertionError(f"u edge {name}: wrong route or codes")
+    nb = 4097                              # ragged: 4097 % 4 == 1
+    codes = rng.integers(0, 4, 4 * nb).astype(np.uint8)
+    codes[4 * nb - 4] = 5                  # in the ragged last word
+    m_real = 4 * nb - 3
+    want = codes.copy()
+    want[m_real:] = 4
+    got = pack2.codes_to_device(codes, m_real, dev)
+    if got is None or not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("u edge ragged: codes differ")
+    _log(f"[wire u] edges: {', '.join(cases)}, ragged last word: codes == "
+         "host codes; the gate + 1 and half-N queries took the plain copy "
+         "(no launch)")
+
+
+def _phase_u(pack2, seed_mode) -> dict:
+    """Phase u: the wire at config #5's reference size (with an N run and
+    separators) and at its query's (a 50 Mbp query cut into 10 entries,
+    5d's shape, padded to its bucket as the upload pads it), then the
+    edge cases. Returns each size's numbers."""
+    import numpy as np
+
+    rng = np.random.default_rng(CHR1["seed"])
+    ref_codes = rng.integers(0, 4, CHR1["n"], dtype=np.uint8)
+    ref_codes[WIRE_N_RUN] = 4
+    ref_codes[::CHR1["n"] // 8] = 5
+    qry_codes = rng.integers(0, 4, CHR1_QUERY_BP, dtype=np.uint8)
+    qry_codes[CHR1_QUERY_BP // STRAINS::CHR1_QUERY_BP // STRAINS] = 5
+    qry_codes[rng.integers(0, CHR1_QUERY_BP, 1000)] = 4
+    wire = {"ref": _wire_phase(pack2, "6a reference", ref_codes, CHR1["n"]),
+            "query": _wire_phase(pack2, "6a / 5d query",
+                                 seed_mode.pad_query(qry_codes),
+                                 CHR1_QUERY_BP)}
+    del ref_codes, qry_codes
+    _wire_edges(pack2, seed_mode)
+    _log("[wire] " + json.dumps(wire, sort_keys=True))
+    return wire
+
+
 def _busy_share(fn) -> dict:
     """Run fn() once under torch.profiler: wall seconds of the window
     (ended by a synchronise) and the share of it during which a kernel ran
@@ -343,10 +544,11 @@ def _busy_share(fn) -> dict:
             "busy_share": busy * 1e-6 / wall if spans else None}
 
 
-def _reset_launches(rank) -> None:
+def _reset_launches(rank, pack2) -> None:
     """Every kernel wrapper's launch count to 0."""
     rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
     rank.scan_lanes.launches = dict.fromkeys(rank.SCAN_LAYOUTS, 0)
+    pack2.unpack_codes.launches = 0
 
 
 def _scan_launches(rank, layout: str, want: int, label: str) -> int:
@@ -688,8 +890,8 @@ def run() -> int:
     from slamem_tpu_torch.engine import scan_mode, seed_mode
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
-    from slamem_tpu_torch.kernels import rank
-    from slamem_tpu_torch.utils import synth
+    from slamem_tpu_torch.kernels import rank, unpack2
+    from slamem_tpu_torch.utils import pack2, synth
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -700,14 +902,18 @@ def run() -> int:
          f"{torch.version.cuda}")
     _log(smi)
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    kernel = rank.load_kernel()
-    _log(f"[build] rank and scan kernels {kernel.path.name} in "
-         f"{time.perf_counter() - t0:.3f} s")
-    for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            _log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = {"rank and scan kernels": pool.submit(rank.load_kernel),
+                  "unpack kernel": pool.submit(unpack2.load_kernel)}
+        built = {label: f.result() for label, f in builds.items()}
+    _log(f"[build] {', '.join(f'{k} {v.path.name}' for k, v in built.items())}"
+         f" in {time.perf_counter() - t0:.3f} s")
+    for lib in built.values():
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                _log(f"[build] {line.strip()}")
 
     # 2. each kernel vs its plain version on the headline reference's
     # tables, at the scan's batch shape, and on a table larger than L2
@@ -756,6 +962,9 @@ def run() -> int:
         del rows, rows_big
     del bwt_big, pos_big, rand_pos, rand_c
 
+    # u. the packed upload wire at config #5's sizes
+    wire = _phase_u(pack2, seed_mode)
+
     # 2s. the scan kernel on one full 4M chunk of the headline query, as
     # find_scan_matches cuts it, against the plain lockstep loop
     chunk = seed_mode.query_to_device(qry, "cuda")[1][
@@ -778,7 +987,7 @@ def run() -> int:
         write_fasta(rp, [Sequence("ref", ref)])
         write_fasta(qp, [Sequence("qry", qry)])
         torch.cuda.reset_peak_memory_stats()
-        _reset_launches(rank)
+        _reset_launches(rank, pack2)
         t0 = time.perf_counter()
         stderr = _cli(cli_main, ["-engine", "scan", "-l", str(HEADLINE_L),
                                  "-device", "cuda", "-v", "-o", out, rp, qp])
@@ -802,7 +1011,7 @@ def run() -> int:
         _log("[slice] every match exact and maximal")
 
         # 3k. the same scan with rank_kernel="pallas": the K0 table
-        _reset_launches(rank)
+        _reset_launches(rank, pack2)
         t0 = time.perf_counter()
         k0_text, k0_st = _engine_phase(
             "k0 3k", read_fasta(rp), read_fasta(qp),
@@ -877,7 +1086,7 @@ def run() -> int:
         sets2 = (read_fasta(rp2), read_fasta(qp2))
         modes = {(): MatchMode.MEM, ("-mum",): MatchMode.MUM,
                  ("-mam",): MatchMode.MAM}
-        _reset_launches(rank)
+        _reset_launches(rank, pack2)
         k0_bytes = {mode: _engine_phase("k0", *sets2, Config(
             engine="scan", rank_kernel="pallas", both_strands=True,
             min_length=20, mode=mm), None)[0] for mode, mm in modes.items()}
@@ -923,8 +1132,16 @@ def run() -> int:
 
         # 5a-5d. the default engine at the bench's sizes
         seed_out = os.path.join(tmp, "seed.txt")
+        _reset_launches(rank, pack2)
         seed = {"5a": _seed_phase(cli_main, "5a", ["-l", str(HEADLINE_L)],
                                   HEADLINE_MATCHES, rp, qp, seed_out)}
+        # the wire: the 5 Mbp reference's upload and the query's
+        launches["unpack_codes"] = pack2.unpack_codes.launches
+        _log(f"[seed 5a] unpack kernel launches "
+             f"{launches['unpack_codes']} (reference and query uploads)")
+        if launches["unpack_codes"] != 2:
+            raise AssertionError("5a: the uploads did not launch the unpack "
+                                 "kernel once each")
         if Path(seed_out).read_bytes() != Path(out).read_bytes():
             raise AssertionError("5a: seed listing != phase 3's scan listing")
         _check_maximal(ref, qry, _listing_matches(seed_out))
@@ -987,7 +1204,7 @@ def run() -> int:
         _log("[seed 5c] every match exact and maximal")
         # 3c. the scan engine on the 40 Mbp pair (LCP array > L2)
         scan40 = os.path.join(tmp, "scan40.txt")
-        _reset_launches(rank)
+        _reset_launches(rank, pack2)
         t0 = time.perf_counter()
         stderr = _cli(cli_main, ["-engine", "scan", "-l", str(CHR21_L),
                                  "-device", "cuda", "-v", "-o", scan40, rp,
@@ -1144,10 +1361,22 @@ def run() -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": None})   # no PyTorch call runs a backward search
-    print(json.dumps({"kernels": kernels}))
+    # the unpack kernel at the 6a / 5d query's shape (phase u); launches:
+    # 5a's two uploads
+    c = wire["query"]
+    kernels.append({
+        "name": "unpack_codes", "route": "cuda",
+        "source": "slamem_tpu_torch/kernels/csrc/unpack2.cu",
+        "replaces": "slamem_tpu/utils/pack2.py:59",
+        "launches": launches["unpack_codes"],
+        "max_abs_err": max(w["max_abs_err"] for w in wire.values()),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": None})   # no one PyTorch call unpacks a 2-bit plane
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -61,6 +61,7 @@ from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.io.fasta import CODE_N
 from slamem_tpu_torch.kernels.rank import popcount32
 from slamem_tpu_torch.utils.device import synchronize
+from slamem_tpu_torch.utils.pack2 import codes_to_device
 
 _I32MAX = int(np.iinfo(np.int32).max)
 _SA_INVALID = -(1 << 31)          # sign bit of an int32 sa_aug row
@@ -860,9 +861,15 @@ def pad_query(query_text: np.ndarray) -> np.ndarray:
 
 def query_to_device(query_text: np.ndarray, device: torch.device
                     ) -> tuple[np.ndarray, torch.Tensor]:
-    """(padded codes, device copy) of a query."""
+    """(padded codes, device copy) of a query. The copy rides the 2-bit
+    packed wire (utils/pack2.py), which rebuilds the padding from the real
+    length; a special-dense query (> 1/8 N or SEP) takes the plain
+    upload."""
     qp = pad_query(query_text)
-    return qp, torch.from_numpy(qp).to(device)
+    qt = codes_to_device(qp, int(query_text.shape[0]), device)
+    if qt is None:
+        qt = torch.from_numpy(qp).to(device)
+    return qp, qt
 
 
 def find_seed_matches(index, query_text: np.ndarray, cfg: Config,

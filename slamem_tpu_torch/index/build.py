@@ -26,8 +26,10 @@ import torch
 
 from slamem_tpu_torch.io.fasta import CODE_N, CODE_SEP
 from slamem_tpu_torch.utils.device import resolve_device
+from slamem_tpu_torch.utils.pack2 import codes_to_device
 
 BWT_SENTINEL = 6  # bwt "char" for the row whose suffix starts at position 0
+PACKED_UPLOAD_MIN = 1 << 20  # numpy texts from this length ride the wire
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,11 +156,27 @@ def build_index(text: np.ndarray | torch.Tensor, occ_block: int = 128,
     reachable by no LF step and backward search undercounts matches touching
     the last position. The terminator is a special with the largest position
     index, so it sorts after all other specials and below every base.
+
+    A numpy text of >= 2^20 codes rides the 2-bit packed wire
+    (utils/pack2.py), its plane padded to a multiple of 4 codes; a torch
+    tensor, a shorter text or a special-dense one (> 1/8 N or SEP) takes
+    the plain upload, as in the JAX package.
     """
     dev = resolve_device(device)
-    if not isinstance(text, torch.Tensor):
-        text = torch.from_numpy(np.ascontiguousarray(text, dtype=np.uint8))
-    body = text.to(device=dev, dtype=torch.uint8)
+    body = None
+    if isinstance(text, np.ndarray) and text.size >= PACKED_UPLOAD_MIN:
+        n = int(text.size)
+        plane = np.asarray(text, np.uint8)
+        if n % 4:
+            plane = np.concatenate([plane, np.zeros(4 - n % 4, np.uint8)])
+        unpacked = codes_to_device(plane, n, dev)
+        if unpacked is not None:
+            body = unpacked[:n]
+    if body is None:
+        if not isinstance(text, torch.Tensor):
+            text = torch.from_numpy(np.ascontiguousarray(text,
+                                                         dtype=np.uint8))
+        body = text.to(device=dev, dtype=torch.uint8)
     text_t = torch.cat([body, torch.full((1,), CODE_SEP, dtype=torch.uint8,
                                          device=dev)])
     sa = suffix_array(text_t)

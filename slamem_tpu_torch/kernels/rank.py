@@ -30,13 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from slamem_tpu_torch._native import build_shared, find_tool
+from slamem_tpu_torch.kernels import build_nvcc
 
 ROW_WORDS = 128     # int32 words per interleaved row (512 B)
 CNT_WORDS = 4       # leading occ counter words
@@ -45,9 +44,6 @@ NIB_PER_ROW = (ROW_WORDS - CNT_WORDS) * 8   # 992 per nibble-table row
 ROW_BYTES = ROW_WORDS * 4
 
 _SOURCE = Path(__file__).parent / "csrc" / "rank.cu"
-_BUILD_DIR = Path(__file__).parent / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _build_rows(bwt: torch.Tensor) -> torch.Tensor:
@@ -191,9 +187,7 @@ class _Kernel(NamedTuple):
 def load_kernel() -> _Kernel:
     """Build (once per source and flags) and load the rank kernel library
     (every entry point of ``csrc/rank.cu``)."""
-    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    nvcc = find_tool("nvcc", cuda_home / "bin" / "nvcc")
-    path, log = build_shared(nvcc, _NVCC_FLAGS, _SOURCE, _BUILD_DIR, "rank")
+    path, log = build_nvcc(_SOURCE, "rank")
     lib = ctypes.CDLL(str(path))
     fn = lib.slamem_rank_rows
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]

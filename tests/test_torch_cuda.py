@@ -1,5 +1,6 @@
 """Port on the card: the CUDA rank kernels (K0 and the nibble kernel), the
-scan kernel (``scan_lanes``, both table layouts), the scan, seed (sort
+scan kernel (``scan_lanes``, both table layouts), the 2-bit unpack kernel
+of the upload wire (``unpack_codes``), the scan, seed (sort
 and boundary backends) and virtual-slab engines on a CUDA device, and the
 mesh branches over a one-rank NCCL group, against their plain versions /
 CPU runs / the single-device engine on the same inputs.
@@ -30,10 +31,12 @@ from slamem_tpu_torch.dist.sharded import (find_seed_matches_sharded,
 from slamem_tpu_torch.engine import scan_mode
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
 from slamem_tpu_torch.engine.seed_mode import (find_seed_matches,
-                                               find_seed_matches_mesh)
+                                               find_seed_matches_mesh,
+                                               query_to_device)
 from slamem_tpu_torch.index.build import build_index, rank_batch
 from slamem_tpu_torch.io.fasta import CODE_SEP, Sequence, write_fasta
 from slamem_tpu_torch.kernels import rank
+from slamem_tpu_torch.utils import pack2
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +168,71 @@ def test_scan_lanes_equals_plain_loop(cuda, n, layout, L, lane_block):
     assert rank.rank_rows.launches + rank.rank_rows_nib.launches == 0
     assert int((want[1] > 0).sum()) > len(qry) // 4
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("nb,m_cut,side", [
+    (1, 1, "edges"), (3, 0, "edges"), (5, 3, "edges"), (4096, 0, "none"),
+    (4097, 37, "edges"), (70_001, 5, "dense"), (70_001, 0, "oob")])
+def test_unpack_kernel_equals_plain(cuda, nb, m_cut, side):
+    """The unpack kernel == unpack_codes_plain on the card: ragged last
+    words (nb % 4 != 0), a tail of CODE_N from m_real = 4 nb - m_cut,
+    specials at position 0, m_real - 1 and in the last word, none, one in
+    eight positions, and dropped indices past the end; one launch each."""
+    rng = np.random.default_rng(nb + m_cut)
+    n = 4 * nb
+    m_real = n - m_cut
+    pb = torch.from_numpy(rng.integers(0, 256, nb).astype(np.uint8))
+    idx = np.zeros(0, np.int64)
+    if side != "none":
+        idx = np.concatenate([[0, max(m_real - 1, 0), n - 1],
+                              rng.integers(0, n, n // 8 if side == "dense"
+                                           else 20)])
+    if side == "oob":
+        idx = np.concatenate([idx, [n, n + 15, 0x40000000]])
+    idx = np.unique(idx).astype(np.int32)
+    val = rng.integers(4, 6, idx.size).astype(np.uint8)
+    args = [t.to(cuda) for t in (pb, torch.from_numpy(idx),
+                                 torch.from_numpy(val))]
+    before = pack2.unpack_codes.launches
+    got = pack2.unpack_codes(*args, m_real)
+    torch.cuda.synchronize()
+    assert pack2.unpack_codes.launches == before + 1
+    want = pack2.unpack_codes_plain(*args, m_real)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), pack2.unpack_codes_plain(
+        pb, torch.from_numpy(idx), torch.from_numpy(val), m_real))
+
+
+@pytest.mark.parametrize("m,dense", [(1, False), (65_537, False),
+                                     (1_000_003, False), (20_000, True)])
+def test_codes_to_device_on_cuda(cuda, m, dense):
+    """query_to_device on the card: the wire (one kernel launch) gives the
+    padded host codes; a special-dense query takes the plain copy (no
+    launch) and gives them too."""
+    rng = np.random.default_rng(m)
+    q = rng.integers(0, 4, m).astype(np.uint8)
+    q[rng.integers(0, m, m // 2 if dense else 100)] = 4
+    q[-1] = CODE_SEP
+    before = pack2.unpack_codes.launches
+    qp, qt = query_to_device(q, torch.device("cuda", 0))
+    assert qt.device.type == "cuda"
+    assert pack2.unpack_codes.launches == before + (not dense)
+    assert np.array_equal(qt.cpu().numpy(), qp)
+
+
+def test_build_index_wire_on_cuda(cuda):
+    """A numpy reference of >= 2^20 codes rides the wire on the card (one
+    launch) and builds the index a torch-tensor input builds."""
+    text = with_n_runs(random_genome((1 << 20) + 5, seed=190), 3, 40,
+                       seed=191)
+    text[777] = CODE_SEP
+    before = pack2.unpack_codes.launches
+    wired = build_index(text, device=cuda)
+    assert pack2.unpack_codes.launches == before + 1
+    plain = build_index(torch.from_numpy(text), device=cuda)
+    assert pack2.unpack_codes.launches == before + 1
+    for f in ("text", "sa", "bwt", "occ_ckpt", "counts"):
+        assert torch.equal(getattr(wired, f), getattr(plain, f)), f
 
 
 @pytest.mark.parametrize("engine", ["seed", "scan"])

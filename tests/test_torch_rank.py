@@ -198,7 +198,17 @@ def test_module_import_needs_no_nvcc(tmp_path):
         "from slamem_tpu_torch.kernels import rank\n"
         "from slamem_tpu_torch.engine import scan_mode, run\n"
         "from slamem_tpu_torch.report import format\n"
-        "from slamem_tpu_torch._native import fastaio, matchfmt\n"
+        "from slamem_tpu_torch._native import fastaio, matchfmt, pack2n\n"
+        "from slamem_tpu_torch.kernels import unpack2\n"
+        "from slamem_tpu_torch.utils import pack2\n"
+        "from slamem_tpu_torch.index import build\n"
+        "e = torch.zeros(0, dtype=torch.int32)\n"
+        "pb = torch.tensor([0b11100100], dtype=torch.uint8)\n"
+        "assert pack2.unpack_codes(pb, e, e.to(torch.uint8), 3).tolist() "
+        "== [0, 1, 2, 4]\n"
+        "assert pack2.unpack_codes.launches == 0\n"
+        "assert unpack2.load_kernel.cache_info().currsize == 0\n"
+        "assert pack2n._lib.cache_info().currsize == 0\n"
         "rows = rank._build_rows(torch.zeros(10, dtype=torch.uint8))\n"
         "nib = rank._build_rows_nib(torch.zeros(10, dtype=torch.uint8))\n"
         "z = torch.zeros(3, dtype=torch.int32)\n"
