@@ -4,9 +4,10 @@
 
 Phases, each of which raises on failure (exit status non-zero):
   1. build the kernel libraries from the checkout, one nvcc (sm_90a) per
-     source, both started together: the rank library (csrc/rank.cu: the
-     standalone K0 and nibble kernels and the scan kernel on both layouts)
-     and the unpack kernel of the packed upload wire (csrc/unpack2.cu);
+     source, all started together: the rank library (csrc/rank.cu: the
+     standalone K0 and nibble kernels and the scan kernel on both layouts),
+     the unpack kernel of the packed upload wire (csrc/unpack2.cu) and the
+     endpoint-extension kernel of the seed engine (csrc/extend.cu);
   2. hold each standalone rank kernel against its plain PyTorch version,
      exact integer equality, and time both: K0 (rank_rows, interleaved
      table) and the nibble kernel (rank_rows_nib, nibble table), each on
@@ -78,6 +79,10 @@ Phases, each of which raises on failure (exit status non-zero):
      query seconds, each stage's device-synchronised seconds (the CLI's
      ``-v`` line) and peak device memory; 5a must have launched the
      unpack kernel exactly twice (the reference and the query uploads);
+     each of 5a-5d, 6a, 6b, 9a and 9b must have launched the extension
+     kernel exactly once and built no extension table (ext_arrays) on the
+     card (a tap stands in for seed_mode.extend_runs and ext_arrays and
+     calls them; it also keeps 5d's and 6a's merged runs for phase e);
   7. the boundary match backend (``Config(match_backend="boundary")``,
      dense seeding at stride 1) through run_engine on the card:
      7a. the headline pair at ``-l 20``: 59,101, bytes == 5a's listing;
@@ -122,15 +127,21 @@ Phases, each of which raises on failure (exit status non-zero):
          each prints its stage seconds (``gather`` = the collectives),
          rounds, pairs, peak device memory and the card's name and power
          limit.
+  e. the extension kernel (seed_mode.extend_runs) against its plain
+     version (_extend_core over ext_arrays of both texts) on the card,
+     exact, on the merged, span-filtered runs that 5d's and 6a's calls
+     extended and on edge triples over the same texts (run boundaries at
+     and beyond both text edges, beside specials, random); times of the
+     raw launch, the wrapper, the plain version and its core alone by
+     CUDA events, and the bound from the runs' bytes.
 Phases run in the order 1, 2, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
-5a, 9a, 7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b, 9b. Prints
-the card and
-its power limit (nvidia-smi), a ``{"kernels": [...]}`` line (each
-kernel's launches on its path, exactness, time, plain time and lower
-bound; the standalone rank kernels' path is the scan kernel that runs
-their device function; the unpack kernel's launches are 5a's, its times
-phase u's at the query shape), and last ``{"ok": true, "device": {...}}``.
-Imports no JAX.
+5a, 9a, 7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b, 9b, e. Prints
+the card and its power limit (nvidia-smi), a ``{"kernels": [...]}`` line
+(each kernel's launches on its path, exactness, time, plain time and
+lower bound; the standalone rank kernels' path is the scan kernel that
+runs their device function; the unpack and extension kernels' launches
+are 5a's, their times phase u's at the query shape and phase e's at 6a's
+runs), and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -567,6 +578,175 @@ def _scan_launches(rank, layout: str, want: int, label: str) -> int:
     return got[layout]
 
 
+class _ExtendTap:
+    """Watches the seed engine's device tail on the card. It stands in for
+    ``seed_mode.extend_runs`` and ``seed_mode.ext_arrays`` and calls them:
+    the first keeps the inputs of its last call (phase e replays the
+    merged, span-filtered runs of 5d and 6a), the second counts its calls
+    on card tensors (the engine must build no extension table there). The
+    kernel's wrapper counts its launches on the module's ``extend_runs``,
+    which is the stand-in ``self.extend`` from here on."""
+
+    def __init__(self, seed_mode) -> None:
+        kernel, self.arrays = seed_mode.extend_runs, seed_mode.ext_arrays
+        self.last = None
+        self.builds = 0
+
+        def extend_runs(*args):
+            self.last = args
+            return kernel(*args)
+
+        def ext_arrays(text):
+            self.builds += int(text.is_cuda)
+            return self.arrays(text)
+
+        extend_runs.launches = 0
+        self.extend = seed_mode.extend_runs = extend_runs
+        seed_mode.ext_arrays = ext_arrays
+
+    def reset(self) -> None:
+        """Counts to 0; forgets the last call's inputs."""
+        self.extend.launches = 0
+        self.builds = 0
+        self.last = None
+
+    def check(self, label: str) -> int:
+        """The launches since the last reset; raises unless there was one
+        and no extension table was built on the card."""
+        if self.extend.launches != 1 or self.builds:
+            raise AssertionError(
+                f"{label}: {self.extend.launches} extension kernel launches "
+                f"(expected 1), {self.builds} extension tables built on the "
+                "card (expected 0)")
+        return self.extend.launches
+
+    def take(self) -> tuple:
+        """The last call's inputs, tensors copied to the host; forgets
+        them."""
+        import torch
+
+        args, self.last = self.last, None
+        return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def _edge_triples(ref, qry, stride: int, k: int, seed: int):
+    """int64 numpy (diag, qs_s, qe_s) that put run boundaries at both text
+    edges and beyond them (where extend_runs clamps), beside the texts'
+    specials, and at random."""
+    import numpy as np
+
+    n, m = ref.size, qry.size
+    m_s = -(-m // stride)
+    rng = np.random.default_rng(seed)
+    edge_q = np.array([-2, -1, 0, 1, m_s - 2, m_s - 1, m_s, m_s + 1])
+    diag = [np.concatenate([[-m - 5, -e * stride, -e * stride - 1,
+                             n - e * stride - k, n - e * stride, n - 3, n,
+                             n + 20] for e in edge_q])]
+    qs = [np.repeat(edge_q, 8)]
+    spec_r = np.flatnonzero(ref >= 4)[:10_000]
+    spec_q = np.flatnonzero(qry >= 4)[:10_000]
+    q_r = rng.integers(0, m_s, spec_r.size)
+    diag += [spec_r - q_r * stride + rng.integers(-3, 4, spec_r.size),
+             rng.integers(-m, n, spec_q.size), rng.integers(-m, n, 100_000)]
+    qs += [q_r, spec_q // stride, rng.integers(-1, m_s + 2, 100_000)]
+    diag, qs = np.concatenate(diag), np.concatenate(qs)
+    return diag, qs, qs + rng.integers(0, 4, qs.size)
+
+
+def _extend_phase(seed_mode, tap, label: str, args) -> dict:
+    """Phase e at one input: the extension kernel (extend_runs) against its
+    plain version (_extend_core over ext_arrays of both texts) on the card,
+    exact, on the merged, span-filtered runs one engine call extended
+    (``args``, the tap's record) and on edge triples over the same texts
+    (_edge_triples); then, on the engine's runs, times by CUDA events: the
+    raw launch, the wrapper, the plain version as defined (both tables
+    built) and its core alone (tables built beforehand, as the engine had
+    them cached for the reference). Bound from this input: bytes = 40 per
+    run (three int64 in, two out) + the text characters each result
+    depends on (from each boundary out to the first mismatch or special,
+    at most 16, inside the text, in both texts); operations = one compare
+    per character pair + 10 per run."""
+    import torch
+
+    from slamem_tpu_torch.kernels.extend import load_kernel
+
+    dev = torch.device("cuda", 0)
+    diag, qs_s, qe_s, ref, qry, stride, k = (
+        a.to(dev) if torch.is_tensor(a) else a for a in args[:7])
+    n, m = ref.numel(), qry.numel()
+    edges = [torch.from_numpy(x).to(dev) for x in _edge_triples(
+        args[3].numpy(), args[4].numpy(), stride, k, 20260816)]
+
+    def plain(d, a, b):
+        return seed_mode._extend_core(d, a, b, tap.arrays(ref),
+                                      tap.arrays(qry), stride, k)
+
+    err = 0
+    for name, (d, a, b) in (("engine runs", (diag, qs_s, qe_s)),
+                            ("edge triples", edges)):
+        before = tap.extend.launches
+        got = tap.extend(d, a, b, ref, qry, stride, k)
+        want = plain(d, a, b)
+        torch.cuda.synchronize()
+        if tap.extend.launches != before + 1:
+            raise AssertionError(f"e {label} {name}: no kernel launch")
+        err = max(err, *(int((g - w).abs().max()) for g, w in zip(got,
+                                                                   want)))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"e {label} {name}: kernel != plain (max "
+                                 f"abs err {err})")
+    qstart, qend = tap.extend(diag, qs_s, qe_s, ref, qry, stride, k)
+    ext_r, ext_q = tap.arrays(ref), tap.arrays(qry)
+    fn = load_kernel().fn
+    out = (torch.empty_like(diag), torch.empty_like(diag))
+    stream = torch.cuda.current_stream().cuda_stream
+    nr = diag.numel()
+
+    def raw():
+        if fn(diag.data_ptr(), qs_s.data_ptr(), qe_s.data_ptr(), nr,
+              ref.data_ptr(), n, qry.data_ptr(), m, stride, k,
+              out[0].data_ptr(), out[1].data_ptr(), stream):
+            raise RuntimeError("extension kernel launch failed")
+
+    ms = _cuda_ms(raw, 50)
+    wrapper_ms = _cuda_ms(lambda: tap.extend(diag, qs_s, qe_s, ref, qry,
+                                             stride, k), 20)
+    core_ms = _cuda_ms(lambda: seed_mode._extend_core(
+        diag, qs_s, qe_s, ext_r, ext_q, stride, k), 10)
+    del ext_r, ext_q
+    plain_ms = _cuda_ms(lambda: plain(diag, qs_s, qe_s), 3)
+    qs, qe_core = qs_s * stride, qe_s * stride
+    qe_b = qe_core + k
+    need_l = (qs - qstart + 1).clamp(max=16)
+    need_r = (qend - qe_core + 1).clamp(max=16)
+    chars = int(torch.minimum(need_l, qs.clamp(0, m)).sum()
+                + torch.minimum(need_l, (qs + diag).clamp(0, n)).sum()
+                + torch.minimum(need_r, m - qe_b.clamp(0, m)).sum()
+                + torch.minimum(need_r, n - (qe_b + diag).clamp(0, n)).sum())
+    bound_bytes = 40 * nr + chars
+    bound_ops = chars // 2 + 10 * nr
+    bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    ext = (qs - qstart) + (qend - qe_core)
+    res = {"runs": nr, "edge_triples": int(edges[0].numel()),
+           "stride": stride, "k": k, "ref_codes": n, "query_codes": m,
+           "extended_runs": int((ext > 0).sum()),
+           "max_ext": int(ext.max()) if nr else 0, "chars": chars,
+           "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "plain_core_ms": core_ms, "max_abs_err": err,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    _log(f"[extend e] {label}: {nr} merged, span-filtered runs (K={k}, "
+         f"stride {stride}; texts {n} + {m} codes) + "
+         f"{res['edge_triples']} edge triples: kernel == plain; kernel "
+         f"{ms:.6f} ms (wrapper {wrapper_ms:.6f} ms), plain {plain_ms:.6f} "
+         f"ms (its core alone, tables built: {core_ms:.6f} ms); bound "
+         f"{res['bound_ms']:.6f} ms (bytes {bound_bytes}: {bytes_ms:.6f} ms,"
+         f" ops {bound_ops}: {ops_ms:.6f} ms); {res['extended_runs']} runs "
+         f"extended, by at most {res['max_ext']}")
+    return res
+
+
 def _listing_matches(path: str) -> list[tuple[int, int, int]]:
     out = []
     with open(path) as f:
@@ -621,12 +801,15 @@ def _verbose_stats(stderr: str) -> dict:
                         re.findall(r"(\w+)=([0-9.]+)", search.group(2))}}
 
 
-def _seed_phase(cli_main, label: str, flags: list[str], want: int, rp: str,
-                qp: str, out: str) -> dict:
+def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
+                rp: str, qp: str, out: str) -> dict:
     """One default-engine CLI run on the card: count, plan, stage times,
-    peak device memory. Raises if the count is not ``want``."""
+    peak device memory. Raises if the count is not ``want``, or unless the
+    call launched the extension kernel once and built no extension table
+    on the card (``tap``)."""
     import torch
 
+    tap.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -635,6 +818,7 @@ def _seed_phase(cli_main, label: str, flags: list[str], want: int, rp: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = _verbose_stats(stderr)
+    st["extend_launches"] = tap.check(label)
     st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     st["matches"] = len(_listing_matches(out))
     st["wall_s"] = wall
@@ -647,7 +831,8 @@ def _seed_phase(cli_main, label: str, flags: list[str], want: int, rp: str,
          f"{st['query_s']:.3f} s ({st['mbp_per_s']:.2f} Mbp/s); stage s: "
          f"{stages}, host tail {st['host_tail_s']:.6f}; CLI wall "
          f"{wall:.3f} s; peak device memory {st['peak_gib']:.3f} "
-         "GiB")
+         f"GiB; extension kernel launches {st['extend_launches']}, card "
+         "extension tables built 0")
     if st["matches"] != want:
         raise AssertionError(f"seed {label}: {st['matches']} matches, "
                              f"expected {want}")
@@ -828,18 +1013,23 @@ def _mesh_listing(ref_set, qry_set, m) -> bytes:
 
 
 def _mesh_phase(label: str, fn, index, ref_set, qry_set, cfg, mesh,
-                want: int, listing: bytes, smi: str) -> dict:
+                want: int, listing: bytes, smi: str, tap) -> dict:
     """Phase 9b: one forced mesh branch on the card; count, listing bytes
     against ``listing``, stage seconds (``gather`` = the collectives),
-    rounds, pairs and peak device memory."""
+    rounds, pairs and peak device memory; one extension launch and no
+    extension table (``tap``, and none in ``index.derived``)."""
     import torch
 
+    tap.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     m = fn(index, qry_set.sequence(0).codes, cfg, mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    tap.check(label)
+    if "ext_table" in index.derived:
+        raise AssertionError(f"9b {label}: an ext_table was built")
     text = _mesh_listing(ref_set, qry_set, m)
     st = {"matches": int(m.length.size), "wall_s": wall,
           "stage_s": m.stats["stage_s"], "rounds": m.stats["rounds"],
@@ -890,9 +1080,10 @@ def run() -> int:
     from slamem_tpu_torch.engine import scan_mode, seed_mode
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
-    from slamem_tpu_torch.kernels import rank, unpack2
+    from slamem_tpu_torch.kernels import extend, rank, unpack2
     from slamem_tpu_torch.utils import pack2, synth
 
+    tap = _ExtendTap(seed_mode)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -904,9 +1095,10 @@ def run() -> int:
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {"rank and scan kernels": pool.submit(rank.load_kernel),
-                  "unpack kernel": pool.submit(unpack2.load_kernel)}
+                  "unpack kernel": pool.submit(unpack2.load_kernel),
+                  "extension kernel": pool.submit(extend.load_kernel)}
         built = {label: f.result() for label, f in builds.items()}
     _log(f"[build] {', '.join(f'{k} {v.path.name}' for k, v in built.items())}"
          f" in {time.perf_counter() - t0:.3f} s")
@@ -1133,8 +1325,10 @@ def run() -> int:
         # 5a-5d. the default engine at the bench's sizes
         seed_out = os.path.join(tmp, "seed.txt")
         _reset_launches(rank, pack2)
-        seed = {"5a": _seed_phase(cli_main, "5a", ["-l", str(HEADLINE_L)],
-                                  HEADLINE_MATCHES, rp, qp, seed_out)}
+        seed = {"5a": _seed_phase(cli_main, tap, "5a",
+                                  ["-l", str(HEADLINE_L)], HEADLINE_MATCHES,
+                                  rp, qp, seed_out)}
+        launches["extend_runs"] = seed["5a"]["extend_launches"]
         # the wire: the 5 Mbp reference's upload and the query's
         launches["unpack_codes"] = pack2.unpack_codes.launches
         _log(f"[seed 5a] unpack kernel launches "
@@ -1158,7 +1352,7 @@ def run() -> int:
         mesh_runs = {}
         for label, flags in (("9a", []), ("9a -shard", ["-shard"])):
             mesh_runs[label] = _seed_phase(
-                cli_main, label, [*flags, "-l", str(HEADLINE_L)],
+                cli_main, tap, label, [*flags, "-l", str(HEADLINE_L)],
                 HEADLINE_MATCHES, rp, qp, mesh_out)
             if Path(mesh_out).read_bytes() != Path(seed_out).read_bytes():
                 raise AssertionError(f"{label}: listing != 5a's")
@@ -1182,7 +1376,7 @@ def run() -> int:
         if text != Path(seed_out).read_bytes():
             raise AssertionError("7a: boundary listing != 5a's")
         _log("[boundary 7a] listing == 5a's")
-        seed["5b"] = _seed_phase(cli_main, "5b", ["-mam", "-l",
+        seed["5b"] = _seed_phase(cli_main, tap, "5b", ["-mam", "-l",
                                                   str(HEADLINE_L)],
                                  MAM_MATCHES, rp, qp, seed_out)
         strains = [Sequence(f"strain{j}", synth.mutate(
@@ -1191,15 +1385,18 @@ def run() -> int:
         qp3 = os.path.join(tmp, "strains.fa")
         write_fasta(qp3, strains)
         del strains
-        seed["5d"] = _seed_phase(cli_main, "5d", ["-l", str(STRAINS_L)],
-                                 STRAINS_MATCHES, rp, qp3, seed_out)
+        seed["5d"] = _seed_phase(cli_main, tap, "5d",
+                                 ["-l", str(STRAINS_L)], STRAINS_MATCHES, rp,
+                                 qp3, seed_out)
+        replays = {"5d": tap.take()}   # its merged runs, for phase e
         ref, qry = synth.strain_pair(CHR21["n"], seed=CHR21["seed"],
                                      sub_rate=CHR21["sub_rate"],
                                      indel_rate=CHR21["indel_rate"])
         write_fasta(rp, [Sequence("ref", ref)])
         write_fasta(qp, [Sequence("qry", qry)])
-        seed["5c"] = _seed_phase(cli_main, "5c", ["-l", str(CHR21_L)],
-                                 CHR21_MATCHES, rp, qp, seed_out)
+        seed["5c"] = _seed_phase(cli_main, tap, "5c",
+                                 ["-l", str(CHR21_L)], CHR21_MATCHES, rp, qp,
+                                 seed_out)
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[seed 5c] every match exact and maximal")
         # 3c. the scan engine on the 40 Mbp pair (LCP array > L2)
@@ -1279,8 +1476,9 @@ def run() -> int:
         _log(f"[chr1] inputs {len(ref)} + {len(qry)} bp made and written in "
              f"{time.perf_counter() - t0:.3f} s")
         _log(smi)
-        chr1 = {"6a": _seed_phase(cli_main, "6a", ["-l", str(CHR1_L)],
+        chr1 = {"6a": _seed_phase(cli_main, tap, "6a", ["-l", str(CHR1_L)],
                                   CHR1_MATCHES, rp, qp, seed_out)}
+        replays["6a"] = tap.take()
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[chr1 6a] every match exact and maximal")
         del ref, qry
@@ -1289,7 +1487,7 @@ def run() -> int:
         _log("[native] " + json.dumps(native, sort_keys=True))
         shard_out = os.path.join(tmp, "shard.txt")
         chr1["6b"] = _seed_phase(
-            cli_main, "6b", ["-shard", "-slabs", str(CHR1_SLABS), "-l",
+            cli_main, tap, "6b", ["-shard", "-slabs", str(CHR1_SLABS), "-l",
                              str(CHR1_L)], CHR1_MATCHES, rp, qp, shard_out)
         if Path(shard_out).read_bytes() != Path(seed_out).read_bytes():
             raise AssertionError("6b: -shard -slabs listing != 6a's")
@@ -1311,10 +1509,17 @@ def run() -> int:
                 ("9b sharded", sharded.find_seed_matches_sharded_mesh)):
             mesh_runs[label] = _mesh_phase(
                 label, fn, index, *sets, Config(min_length=CHR1_L), mesh,
-                CHR1_MATCHES, Path(seed_out).read_bytes(), smi)
+                CHR1_MATCHES, Path(seed_out).read_bytes(), smi, tap)
         del index, sets
         dist.destroy_process_group()
         _log("[mesh] " + json.dumps(mesh_runs, sort_keys=True))
+
+    # e. the extension kernel against its plain version on the merged,
+    # span-filtered runs of 5d and 6a and on edge triples
+    ext_e = {label: _extend_phase(seed_mode, tap, label, args)
+             for label, args in replays.items()}
+    del replays
+    _log("[extend] " + json.dumps(ext_e, sort_keys=True))
 
     for name, c in checks.items():
         _log(f"[rank] {name}: 4M random queries: kernel {c['big']['ms']:.6f}"
@@ -1373,6 +1578,17 @@ def run() -> int:
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"],
         "library_ms": None})   # no one PyTorch call unpacks a 2-bit plane
+    # the extension kernel at 6a's merged runs (phase e); launches: 5a's
+    c = ext_e["6a"]
+    kernels.append({
+        "name": "extend_runs", "route": "cuda",
+        "source": "slamem_tpu_torch/kernels/csrc/extend.cu",
+        "replaces": "slamem_tpu/engine/seed_mode.py:637 + :555",
+        "launches": launches["extend_runs"],
+        "max_abs_err": max(e["max_abs_err"] for e in ext_e.values()),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": None})   # no PyTorch call extends matches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

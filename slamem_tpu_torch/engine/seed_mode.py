@@ -14,9 +14,10 @@ Every stage is a batched gather / sort / scan on the index's device:
      whose pair totals fit ``Config.pair_capacity`` (a memory budget);
   4. sort the pairs by (diagonal, sample) as one packed int64 key;
   5. maximal matches fall out as runs of consecutive samples on a
-     diagonal; the host merges runs cut by round edges, and at stride > 1
-     one device pass extends each run's ends to the exact match boundaries
-     (_extend_core).
+     diagonal; the device merges runs cut by round edges and drops runs
+     too short to matter (merge_runs_device), at stride > 1 one kernel
+     launch extends each run's ends to the exact match boundaries
+     (extend_runs), and only the kept matches leave the device.
 
 Why this is correct (dense seeding; choose_stride has the sparse case):
   * every candidate pair (r, i) satisfies pairLCP(ref[r:], q[i:]) >= K, and
@@ -59,6 +60,7 @@ import torch
 
 from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.io.fasta import CODE_N
+from slamem_tpu_torch.kernels.extend import load_kernel as load_extend
 from slamem_tpu_torch.kernels.rank import popcount32
 from slamem_tpu_torch.utils.device import synchronize
 from slamem_tpu_torch.utils.pack2 import codes_to_device
@@ -490,7 +492,9 @@ def ext_arrays(text: torch.Tensor
 
 
 def ext_table(index):
-    """ext_arrays(index.text), built once per index (``index.derived``)."""
+    """ext_arrays(index.text), built once per index (``index.derived``):
+    the reference's tables for the plain route of extend_runs, so an index
+    on the CPU builds them; on a card the kernel reads the text."""
     hit = index.derived.get("ext_table")
     if hit is None:
         hit = index.derived["ext_table"] = ext_arrays(index.text)
@@ -524,8 +528,8 @@ def _extend_core(diag: torch.Tensor, qs_s: torch.Tensor, qe_s: torch.Tensor,
     end (right), clamped by the distance-to-special arrays. choose_stride's
     argument bounds the true extension by S-1 <= 15, so one word per side
     suffices. Returns position-space (qstart', qend') with the dense-run
-    convention length = K + qend' - qstart'. Called once on the host-merged
-    runs (the JAX package's extend_runs dispatch).
+    convention length = K + qend' - qstart'. The plain version of
+    extend_runs (its route for CPU tensors).
     """
     fxr, fxlr, lvlr, lvrr = ext_r
     fxq, fxlq, lvlq, lvrq = ext_q
@@ -544,6 +548,63 @@ def _extend_core(diag: torch.Tensor, qs_s: torch.Tensor, qe_s: torch.Tensor,
     ext_r_ = torch.minimum(torch.minimum(dr, lvrq[qbc].to(torch.int64)),
                            lvrr[rb].to(torch.int64))
     return qs - ext_l, qe_s * stride + ext_r_
+
+
+def _check_extend(runs: tuple[torch.Tensor, ...],
+                  texts: tuple[torch.Tensor, ...]) -> None:
+    """Argument check of ``extend_runs`` from shapes, dtypes and devices
+    alone (no read of the data)."""
+    for name, t, dtype in (*(("run", r, torch.int64) for r in runs),
+                           *(("text", t, torch.uint8) for t in texts)):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} arrays must be 1-D contiguous {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != runs[0].device:
+            raise ValueError(f"a {name} array is on {t.device}, the runs on "
+                             f"{runs[0].device}")
+    if not runs[0].shape == runs[1].shape == runs[2].shape:
+        raise ValueError("diag, qs_s and qe_s differ in shape")
+
+
+def extend_runs(diag: torch.Tensor, qs_s: torch.Tensor, qe_s: torch.Tensor,
+                ref_text: torch.Tensor, q_text: torch.Tensor, stride: int,
+                k: int, ext_r=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact position-space (qstart', qend') int64 of merged sample-space
+    run cores: ``_extend_core(diag, qs_s, qe_s, ext_arrays(ref_text),
+    ext_arrays(q_text), stride, k)``, clamps included. Runs are int64
+    (TRUE diagonal refpos - qpos), the texts uint8 codes.
+
+    CUDA tensors launch the kernel of ``kernels/csrc/extend.cu`` on the
+    current stream, which reads the 16 characters on each side of each
+    boundary from the texts (no table is built), without synchronising,
+    and count the launch in ``extend_runs.launches``; zero runs launch
+    nothing. CPU tensors take ``_extend_core``, over ``ext_r`` (the
+    reference's ext_arrays, e.g. ext_table(index)) when given.
+    """
+    _check_extend((diag, qs_s, qe_s), (ref_text, q_text))
+    if diag.device.type == "cpu":
+        if ext_r is None:
+            ext_r = ext_arrays(ref_text)
+        return _extend_core(diag, qs_s, qe_s, ext_r, ext_arrays(q_text),
+                            stride, k)
+    qstart = torch.empty_like(diag)
+    qend = torch.empty_like(diag)
+    if diag.numel() == 0:
+        return qstart, qend
+    fn = load_extend().fn
+    with torch.cuda.device(diag.device):
+        stream = torch.cuda.current_stream(diag.device).cuda_stream
+        err = fn(diag.data_ptr(), qs_s.data_ptr(), qe_s.data_ptr(),
+                 diag.numel(), ref_text.data_ptr(), ref_text.numel(),
+                 q_text.data_ptr(), q_text.numel(), int(stride), int(k),
+                 qstart.data_ptr(), qend.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"extension kernel launch failed: CUDA error {err}")
+    extend_runs.launches += 1
+    return qstart, qend
+
+
+extend_runs.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -623,10 +684,41 @@ def expand_block_to_runs(sa_aug: torch.Tensor, lo: torch.Tensor,
                          m_off: int, stride: int = 1
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """MEM path of one round: expansion, pair sort and run compaction on
-    the device; only run boundaries leave it. At stride > 1 the triples
-    are in sample space (extension follows the host merge)."""
+    the device; the run boundaries stay there for the merge. At stride > 1
+    the triples are in sample space (extension follows the merge)."""
     return _compact_pair_runs(
         *expand_block_pairs(sa_aug, lo, width, start, end, m_off, stride))
+
+
+def merge_runs_device(run_d: torch.Tensor, run_qs: torch.Tensor,
+                      run_qe: torch.Tensor, w_min: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge and span filter of run fragments, on their device: the
+    counterpart of merge_runs for every round plan and slab program.
+
+    Fragments (int32 (diag', qstart, qend), any order) sort by (diag',
+    qstart) as one packed int64 key; a fragment chains onto the one before
+    when the diagonal is equal and qstart == previous qend + 1 (the
+    fragments of one run partition its samples, so chains reassemble any
+    partition into rounds, blocks, slabs or ranks). Inside a chain qend
+    increases, so the chain ends at its last fragment's qend. Chains of
+    fewer than ``w_min`` windows are dropped. Returns the kept chains
+    (diag', qstart, qend) in (diag', qstart) order, sized from the data.
+    """
+    if run_d.numel() == 0:
+        return run_d, run_qs, run_qe
+    key, order = torch.sort((run_d.to(torch.int64) << 32)
+                            | run_qs.to(torch.int64))
+    d = (key >> 32).to(torch.int32)
+    qs = (key & 0xFFFFFFFF).to(torch.int32)
+    qe = run_qe[order]
+    is_start = torch.ones_like(d, dtype=torch.bool)
+    is_start[1:] = (d[1:] != d[:-1]) | (qs[1:] != qe[:-1] + 1)
+    first = torch.nonzero(is_start).squeeze(1)
+    last = torch.cat([first[1:], first.new_full((1,), d.shape[0])]) - 1
+    c_qs, c_qe = qs[first], qe[last]
+    keep = c_qe - c_qs + 1 >= w_min
+    return d[first][keep], c_qs[keep], c_qe[keep]
 
 
 def _expand_flags_core(text: torch.Tensor, qt: torch.Tensor,
@@ -744,7 +836,9 @@ def merge_runs(batches: list[RunBatch]) -> RunBatch:
     Rounds partition query positions (or samples) into contiguous blocks,
     so a match crossing a block edge appears as two (or more) runs with the
     same diagonal and contiguous [qstart, qend] spans. Chains collapse with
-    a groupby over break flags.
+    a groupby over break flags. The host version, which the tests hold
+    to the JAX package's; the engines merge on the device
+    (merge_runs_device).
     """
     if not batches:
         return _empty_runs()
@@ -878,8 +972,10 @@ def find_seed_matches(index, query_text: np.ndarray, cfg: Config,
 
     The query is padded to a length bucket (N padding produces no windows)
     and everything runs on ``index.device``: upload -> plan (plan_fused)
-    -> tables (seed_table, bucket_table, ext_table; cached per index) ->
-    frontend (packing + bucket or join search) -> pairs_to_matches.
+    -> tables (seed_table, bucket_table; cached per index) -> frontend
+    (packing + bucket or join search) -> pairs_to_matches, whose device
+    tail (merge, span filter, extension, length keep) fetches only the
+    kept matches.
     ``stats`` carries the plan and the device-synchronised time of each
     stage. A ``mesh`` of more than one rank (dist/mesh.py) runs the rounds
     data-parallel over its ranks (pairs_to_matches); with no mesh or one
@@ -906,7 +1002,6 @@ def _find_seed_matches(index, query_text: np.ndarray, cfg: Config,
     m_p = int(qp.shape[0])
     k, stride, use_bucket = plan_fused(index, m_p, cfg)
     refk, sa_aug = seed_table(index, k)
-    ext_r = ext_table(index) if stride != 1 else None
     probes = 12  # roofline_bytes charges the join this, as the JAX package
     if use_bucket:
         starts, shift, probes = bucket_table(index, k)
@@ -919,7 +1014,7 @@ def _find_seed_matches(index, query_text: np.ndarray, cfg: Config,
         lo, width = _join_intervals(refk, qk, qvalid)
     clock.mark("frontend")
     matches = backend(index, lo, width, k, m_p, cfg, sa_aug, qt=qt,
-                      stride=stride, ext_r=ext_r, clock=clock)
+                      stride=stride, clock=clock)
     k_words = 2 if k > 16 else 1
     matches.stats.update(
         frontend="bucket" if use_bucket else "join",
@@ -960,7 +1055,7 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
                      m: int, cfg: Config,
                      sa_aug: torch.Tensor | None = None,
                      qt: torch.Tensor | None = None, stride: int = 1,
-                     ext_r=None, clock: StageClock | None = None,
+                     clock: StageClock | None = None,
                      mesh=None) -> SeedMatches:
     """Shared backend: intervals at depth k -> maximal matches >= min_length.
 
@@ -968,20 +1063,20 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
     fits ``cfg.pair_capacity`` (a memory budget), else the host cuts the
     width cumsum into rounds that fit, growing the budget to
     ``pair_capacity_max`` when the total is over 3x it. Each round expands,
-    sorts and compacts on the device; only run triples come back, and the
-    host merges them. At stride > 1 (sparse seeding; ``qt`` = the padded
-    query on the device, ``ext_r`` = ext_table(index)) lo/width, rounds and
-    runs are in sample space until _finalize_strided extends the merged
-    runs. With ``cfg.match_backend="boundary"``, ``qt`` given and stride 1,
-    each round ships start / end events instead (_expand_flags_core), and
-    the host pairs them into runs that need no merge (BoundaryBatch); any
+    sorts and compacts on the device, and its run triples stay there for
+    the device tail (_finish). At stride > 1 (sparse seeding; ``qt`` = the
+    padded query on the device) lo/width, rounds and runs are in sample
+    space until the tail extends the merged runs. With
+    ``cfg.match_backend="boundary"``, ``qt`` given and stride 1, each round
+    ships start / end events to the host instead (_expand_flags_core),
+    which pairs them into runs that need no merge (BoundaryBatch); any
     other backend name runs the sort backend, as in the JAX package. A
     ``mesh`` of more than one rank takes pairs_to_matches_mesh.
     """
     if mesh is not None and mesh.size > 1:
         return pairs_to_matches_mesh(index, lo, width, k, m, cfg, sa_aug,
-                                     qt=qt, stride=stride, ext_r=ext_r,
-                                     clock=clock, mesh=mesh)
+                                     qt=qt, stride=stride, clock=clock,
+                                     mesh=mesh)
     use_boundary = (qt is not None and cfg.match_backend == "boundary"
                     and stride == 1)
     if sa_aug is None:
@@ -989,7 +1084,6 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
     if clock is None:
         clock = StageClock(index.device)
     total, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
-    batches = []
     if use_boundary:
         bb = BoundaryBatch()
         for start, end in blocks:
@@ -999,15 +1093,14 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
             ns, ne = int(sd.shape[0]), int(ed.shape[0])
             bb.add(ev[:ns], ev[ns:2 * ns], ev[2 * ns:2 * ns + ne],
                    ev[2 * ns + ne:])
-        batches.append(bb.runs(m_off))    # global flags: runs are whole
+        clock.mark("expand")
+        matches = finalize_matches(bb.runs(m_off), k, cfg)  # runs whole
+        clock.mark("merge")
     else:
-        for start, end in blocks:
-            runs = torch.stack(expand_block_to_runs(
-                sa_aug, lo, width, start, end, m_off, stride)).cpu().numpy()
-            runs = runs.astype(np.int64)
-            batches.append(RunBatch(runs[0] - m_off, runs[1], runs[2]))
-    clock.mark("expand")
-    matches = _finish(batches, qt, ext_r, k, stride, cfg, clock)
+        frags = [expand_block_to_runs(sa_aug, lo, width, start, end, m_off,
+                                      stride) for start, end in blocks]
+        clock.mark("expand")
+        matches = _finish(index, frags, m_off, qt, k, stride, cfg, clock)
     matches.stats = {"pairs": total, "k": k, "stride": stride,
                      "rounds": len(blocks), "stage_s": clock.stage_s}
     return matches
@@ -1017,17 +1110,18 @@ def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
                           k: int, m: int, cfg: Config,
                           sa_aug: torch.Tensor | None = None,
                           qt: torch.Tensor | None = None, stride: int = 1,
-                          ext_r=None, clock: StageClock | None = None,
+                          clock: StageClock | None = None,
                           *, mesh) -> SeedMatches:
     """pairs_to_matches with the rounds data-parallel over ``mesh`` (any
     size; dist/seed.py): every rank plans the same rounds from the same
     replicated intervals and takes them ``mesh.size`` at a time, rank r
     block r of each group (an empty block when the group is short). The
-    run triples (or boundary events) come back gathered in rank order, so
-    every rank merges the same runs (finalize_matches, or
-    _finalize_strided at stride > 1) and holds the same result. Stages:
-    ``expand`` (this rank's blocks) and ``gather`` (the collectives);
-    ``stats['pairs']`` is the summed pair count of the blocks.
+    run triples come back gathered in rank order and stay on the device:
+    every rank runs the device tail (_finish) on the same fragments, on
+    its own device, and holds the same result. Boundary events go to the
+    host, as in pairs_to_matches. Stages: ``expand`` (this rank's blocks)
+    and ``gather`` (the collectives); ``stats['pairs']`` is the summed
+    pair count of the blocks.
     """
     from slamem_tpu_torch.dist.seed import (expand_boundaries_gathered,
                                             expand_runs_gathered)
@@ -1040,7 +1134,7 @@ def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
         clock = StageClock(index.device)
     _, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
     m_s = int(lo.shape[0])
-    batches = []
+    frags = []
     bb = BoundaryBatch()
     pairs = 0
     for g in range(0, len(blocks), mesh.size):
@@ -1055,75 +1149,74 @@ def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
             ns = int(starts.shape[0])
             bb.add(ev[:ns, 0], ev[:ns, 1], ev[ns:, 0], ev[ns:, 1])
         else:
-            runs, counts, n = expand_runs_gathered(
+            runs, _, n = expand_runs_gathered(
                 mesh, sa_aug, lo, width, start, end, m_off, stride, clock)
-            runs = runs.cpu().numpy().astype(np.int64)
-            # one batch per block: runs abut across blocks, not inside one
-            for part in np.split(runs, np.cumsum(counts)[:-1]):
-                batches.append(RunBatch(part[:, 0] - m_off, part[:, 1],
-                                        part[:, 2]))
+            frags.append(runs.unbind(1))   # the merge takes any partition
         pairs += int(n)
         clock.mark("gather")
     if use_boundary:
-        batches.append(bb.runs(m_off))    # global flags: runs are whole
-    matches = _finish(batches, qt, ext_r, k, stride, cfg, clock)
+        matches = finalize_matches(bb.runs(m_off), k, cfg)  # runs whole
+        clock.mark("merge")
+    else:
+        matches = _finish(index, frags, m_off, qt, k, stride, cfg, clock)
     matches.stats = {"pairs": pairs, "k": k, "stride": stride,
                      "rounds": len(blocks), "ranks": mesh.size,
                      "stage_s": clock.stage_s}
     return matches
 
 
-def _finish(batches: list[RunBatch], qt, ext_r, k: int, stride: int,
-            cfg: Config, clock: StageClock) -> SeedMatches:
-    """The host tail of every round plan: merge, then the length filter
-    (stride 1) or the sparse tail (_finalize_strided)."""
-    if stride != 1:
-        return _finalize_strided(batches, qt, ext_r, k, stride, cfg, clock)
-    matches = finalize_matches(batches, k, cfg)
-    clock.mark("merge")
-    return matches
+def _finish(index, frags: list, m_off: int, qt: torch.Tensor | None, k: int,
+            stride: int, cfg: Config, clock: StageClock) -> SeedMatches:
+    """The sort backend's tail, on the device, for every round plan and
+    slab program. ``frags`` lists int32 (diag', qstart, qend) fragment
+    tensors (diag' = diagonal + ``m_off``), in any partition.
 
-
-def _finalize_strided(batches: list[RunBatch], qt: torch.Tensor, ext_r,
-                      k: int, stride: int, cfg: Config,
-                      clock: StageClock) -> SeedMatches:
-    """Sparse tail: merge sample-space run fragments, drop runs too short
-    to reach the minimum length (span_w_min), then ONE device extension
-    pass recovers exact position-space boundaries, and the min-length keep.
+    Concatenate -> merge_runs_device with the span filter: at stride 1
+    w_min = L - k + 1 is the length filter itself; at stride > 1 it is
+    span_w_min, which drops runs too short to reach L even extended (stage
+    ``merge``) -> extend_runs, one kernel launch on a card -> the length
+    keep -> ONE fetch of the kept (refpos, qpos, length) (stage
+    ``extend``; at stride 1 the fetch ends ``merge``).
 
     Fragments are merged BEFORE extension: a match crossing a round edge
     splits into fragments whose interior ends are not flanked by
     mismatches, so extending fragments independently would over-extend.
     Exact for any number of rounds.
     """
-    runs = merge_runs(batches)
-    w_min = span_w_min(int(cfg.min_length), k, stride)
-    if w_min > 1:
-        ok = (runs.qend - runs.qstart + 1) >= w_min
-        runs = RunBatch(runs.diag[ok], runs.qstart[ok], runs.qend[ok])
+    L = int(cfg.min_length)
+    w_min = span_w_min(L, k, stride) if stride != 1 else max(1, L - k + 1)
+    if frags:
+        d, qs, qe = merge_runs_device(*(torch.cat(c) for c in zip(*frags)),
+                                      w_min)
+    else:
+        d = qs = qe = torch.zeros(0, dtype=torch.int32, device=index.device)
+    diag = d.to(torch.int64) - m_off
+    qs, qe = qs.to(torch.int64), qe.to(torch.int64)
+    if stride == 1:
+        return _fetch_matches(diag + qs, qs, qe - qs + k, clock, "merge")
     clock.mark("merge")
-    if runs.diag.size == 0:
-        e = np.zeros(0, np.int64)
-        return SeedMatches(refpos=e, qpos=e.copy(), length=e.copy())
-    dev = qt.device
-    dqe = torch.from_numpy(np.stack([runs.diag, runs.qstart, runs.qend])
-                           ).to(dev)
-    qstart, qend = _extend_core(dqe[0], dqe[1], dqe[2], ext_r,
-                                ext_arrays(qt), stride, k)
-    qstart, qend = torch.stack([qstart, qend]).cpu().numpy()
-    clock.mark("extend")
+    ext_r = ext_table(index) if index.device.type == "cpu" else None
+    qstart, qend = extend_runs(diag, qs, qe, index.text, qt, stride, k,
+                               ext_r)
     length = k + qend - qstart
-    keep = length >= cfg.min_length
-    return SeedMatches(refpos=(runs.diag + qstart)[keep],
-                       qpos=qstart[keep], length=length[keep])
+    keep = length >= L
+    return _fetch_matches(diag[keep] + qstart[keep], qstart[keep],
+                          length[keep], clock, "extend")
 
 
-def finalize_matches(batches: list[RunBatch], k: int,
-                     cfg: Config) -> SeedMatches:
-    """Merge per-round run fragments into final matches. MUM/MAM
-    uniqueness is decided later from the match set itself
-    (apply_mode_filter)."""
-    runs = merge_runs(batches)
+def _fetch_matches(refpos: torch.Tensor, qpos: torch.Tensor,
+                   length: torch.Tensor, clock: StageClock,
+                   stage: str) -> SeedMatches:
+    """Kept int64 matches on the device -> host SeedMatches, one copy."""
+    out = torch.stack([refpos, qpos, length]).cpu().numpy()
+    clock.mark(stage)
+    return SeedMatches(refpos=out[0], qpos=out[1], length=out[2])
+
+
+def finalize_matches(runs: RunBatch, k: int, cfg: Config) -> SeedMatches:
+    """Whole host runs -> final matches by the length filter (the boundary
+    backend's tail; the sort backend's is _finish). MUM/MAM uniqueness is
+    decided later from the match set itself (apply_mode_filter)."""
     length = runs.qend - runs.qstart + k
     keep = length >= cfg.min_length
     return SeedMatches(

@@ -1,9 +1,10 @@
 """Port on the card: the CUDA rank kernels (K0 and the nibble kernel), the
 scan kernel (``scan_lanes``, both table layouts), the 2-bit unpack kernel
-of the upload wire (``unpack_codes``), the scan, seed (sort
-and boundary backends) and virtual-slab engines on a CUDA device, and the
-mesh branches over a one-rank NCCL group, against their plain versions /
-CPU runs / the single-device engine on the same inputs.
+of the upload wire (``unpack_codes``), the seed engine's endpoint-extension
+kernel (``extend_runs``), the scan, seed (sort and boundary backends) and
+virtual-slab engines on a CUDA device, and the mesh branches over a
+one-rank NCCL group, against their plain versions / CPU runs / the
+single-device engine on the same inputs.
 
 These tests need a CUDA card (marker ``cuda``) and skip without one. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -28,7 +29,7 @@ from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.dist.mesh import make_mesh
 from slamem_tpu_torch.dist.sharded import (find_seed_matches_sharded,
                                            find_seed_matches_sharded_mesh)
-from slamem_tpu_torch.engine import scan_mode
+from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
 from slamem_tpu_torch.engine.seed_mode import (find_seed_matches,
                                                find_seed_matches_mesh,
@@ -310,6 +311,107 @@ def test_virtual_slabs_cuda_equals_cpu(cuda, n_slabs):
     plan = ("pairs", "k", "stride", "rounds", "shards", "shift", "probes",
             "R")
     assert {k: got.stats[k] for k in plan} == {k: want.stats[k] for k in plan}
+
+
+def _extend_texts(n: int, seed: int):
+    """A reference with N runs and separators and a padded query strain of
+    it with N runs (numpy uint8)."""
+    ref = with_n_runs(random_genome(n, seed=seed), 3, 40, seed=seed + 1)
+    ref[[n // 3, n // 2]] = CODE_SEP
+    qry = with_n_runs(mutate(ref % 4, 0.01, 0.001, seed=seed + 2), 2, 30,
+                      seed=seed + 3)
+    return ref, seed_mode.pad_query(qry)
+
+
+def _extend_triples(n: int, m: int, stride: int, k: int, seed: int):
+    """int64 (diag, qs_s, qe_s): half near the strain's own diagonals (runs
+    that extend), half anywhere, plus boundaries at and beyond both text
+    edges."""
+    rng = np.random.default_rng(seed)
+    m_s = -(-m // stride)
+    nr = 200_000
+    qs = rng.integers(-2, m_s + 2, nr)
+    diag = np.where(rng.random(nr) < 0.5, rng.integers(-40, 40, nr),
+                    rng.integers(-m, n + 1, nr))
+    edge_q = np.array([-2, -1, 0, 1, m_s - 2, m_s - 1, m_s, m_s + 1])
+    edge_d = np.concatenate([[-m - 5, -e * stride, -e * stride - 1,
+                              n - e * stride - k, n - e * stride, n - 3, n,
+                              n + 20] for e in edge_q])
+    qs = np.concatenate([qs, np.repeat(edge_q, 8)])
+    diag = np.concatenate([diag, edge_d])
+    return diag, qs, qs + rng.integers(0, 8, qs.size)
+
+
+@pytest.mark.parametrize("k,stride", [(13, 8), (14, 14), (24, 7)])
+def test_extend_kernel_equals_plain(cuda, k, stride):
+    """The extension kernel == its plain version (_extend_core over
+    ext_arrays) on the card and == the CPU route, on random, real and edge
+    triples; one launch; zero runs launch nothing."""
+    ref, qry = _extend_texts(250_000, 190)
+    trip = [torch.from_numpy(x) for x in _extend_triples(
+        len(ref), len(qry), stride, k, 191 + k)]
+    texts = [torch.from_numpy(ref), torch.from_numpy(qry)]
+    args = [t.to(cuda) for t in trip + texts]
+    before = seed_mode.extend_runs.launches
+    got = seed_mode.extend_runs(*args, stride, k)
+    torch.cuda.synchronize()
+    assert seed_mode.extend_runs.launches == before + 1
+    want = seed_mode._extend_core(*args[:3], seed_mode.ext_arrays(args[3]),
+                                  seed_mode.ext_arrays(args[4]), stride, k)
+    cpu = seed_mode.extend_runs(*trip, *texts, stride, k)
+    for g, w, c in zip(got, want, cpu):
+        assert g.dtype == torch.int64 and g.device.type == "cuda"
+        assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+    ext = (args[1] * stride - got[0]) + (got[1] - args[2] * stride)
+    assert int((ext > 0).sum()) > 1000 and int(ext.max()) >= stride - 1
+    empty = seed_mode.extend_runs(*(t[:0] for t in args[:3]), *args[3:],
+                                  stride, k)
+    assert seed_mode.extend_runs.launches == before + 1
+    assert all(e.numel() == 0 for e in empty)
+
+
+def test_extend_runs_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    """With the plain version and the table builder made to fail, CUDA
+    tensors still extend (the kernel), and a card query runs."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain path ran on CUDA tensors")
+
+    ref, qry = _extend_texts(60_000, 195)
+    args = [torch.from_numpy(x).to(cuda) for x in
+            (*_extend_triples(len(ref), len(qry), 8, 13, 196), ref, qry)]
+    want = seed_mode._extend_core(*args[:3], seed_mode.ext_arrays(args[3]),
+                                  seed_mode.ext_arrays(args[4]), 8, 13)
+    monkeypatch.setattr(seed_mode, "_extend_core", plain)
+    monkeypatch.setattr(seed_mode, "ext_arrays", plain)
+    got = seed_mode.extend_runs(*args, 8, 13)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    m = find_seed_matches(build_index(ref, device=cuda), qry[:50_000],
+                          Config(min_length=20))
+    assert m.stats["stride"] > 1 and m.length.size > 0
+
+
+@pytest.mark.parametrize("fields", [dict(min_length=20),
+                                    dict(min_length=50),
+                                    dict(min_length=20, pair_capacity=256),
+                                    dict(min_length=20, n_slabs=3)])
+def test_sparse_call_launches_extension_once(cuda, fields):
+    """Each sparse seed call on the card (one round, the span filter,
+    several rounds, the virtual-slab program) launches the extension
+    kernel once and builds no ext_table; a dense call launches none."""
+    ref = with_n_runs(random_genome(200_000, seed=153), 3, 40, seed=154)
+    qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=155), 2, 30, seed=156)
+    idx = build_index(ref, device=cuda)
+    fields = dict(fields)
+    n_slabs = fields.pop("n_slabs", None)
+    cfg = Config(**fields)
+    before = seed_mode.extend_runs.launches
+    m = find_seed_matches_sharded(idx, qry, cfg, n_slabs=n_slabs)
+    assert m.stats["stride"] > 1 and m.length.size > 0
+    assert seed_mode.extend_runs.launches == before + 1
+    assert (m.stats["rounds"] > 1) == (cfg.pair_capacity == 256)
+    find_seed_matches(idx, qry, Config(min_length=20, sparse_seeds="off"))
+    assert seed_mode.extend_runs.launches == before + 1
+    assert "ext_table" not in idx.derived
 
 
 def test_cli_save_load_on_cuda(cuda, tmp_path):
