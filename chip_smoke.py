@@ -26,7 +26,9 @@ Phases, each of which raises on failure (exit status non-zero):
         pinned plain copy of the codes; then the edge cases (specials at
         0 and m_real - 1, a ragged last plane word, none, the 1/8 gate,
         and past it and a half-N query, which take the plain copy and
-        launch nothing);
+        launch nothing) and the kernel == unpack_codes_plain at plane
+        lengths around its word, warp and block edges (UNPACK_NB), with
+        no special, one, the edge ones and one in eight positions;
      2s. the scan kernel (scan_lanes, one warp per lane) on one full 4M
          chunk of the headline query (strain_pair(5_000_000,
          seed=20260816, sub_rate=0.015, indel_rate=0.0015)) at ``-l 20``,
@@ -130,10 +132,14 @@ Phases, each of which raises on failure (exit status non-zero):
   e. the extension kernel (seed_mode.extend_runs) against its plain
      version (_extend_core over ext_arrays of both texts) on the card,
      exact, on the merged, span-filtered runs that 5d's and 6a's calls
-     extended and on edge triples over the same texts (run boundaries at
-     and beyond both text edges, beside specials, random); times of the
-     raw launch, the wrapper, the plain version and its core alone by
-     CUDA events, and the bound from the runs' bytes.
+     extended, on edge triples over the same texts (run boundaries at
+     and beyond both text edges, beside specials, random) and on window
+     triples (every window at every distance 0..33 from both ends of both
+     texts), the edge and window triples also with both texts copied to
+     byte offsets 0..15 of larger buffers; times of the raw launch, the
+     wrapper, the plain version and its core alone by CUDA events, the
+     bound from the runs' bytes and the sector bound (40 B a run + the
+     32-byte sectors under its four windows).
 Phases run in the order 1, 2, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
 5a, 9a, 7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b, 9b, e. Prints
 the card and its power limit (nvidia-smi), a ``{"kernels": [...]}`` line
@@ -175,6 +181,10 @@ CHR1_L = 50
 CHR1_SLABS = 8
 CHR1_MATCHES = 307_706           # chr1_250mbp_l50.matches (== sharded)
 WIRE_N_RUN = slice(100_000_000, 100_050_000)  # phase u's reference N run
+# phase u's plane lengths (bytes) around the unpack kernel's word (4 B),
+# warp (128 words) and block (1,024 words) edges
+UNPACK_NB = (1, 2, 3, 5, 15, 16, 17, 63, 64, 65, 4095, 4096, 4097, 16385,
+             70_001)
 RANDOM_QUERIES = 1 << 22         # 4,194,304 random occ queries
 # a pair capacity under 5c's dense pair total (31M at K=16) but over a
 # third of it, so the rounds do not grow to pair_capacity_max: 2 rounds
@@ -499,9 +509,30 @@ def _wire_edges(pack2, seed_mode) -> None:
     got = pack2.codes_to_device(codes, m_real, dev)
     if got is None or not np.array_equal(got.cpu().numpy(), want):
         raise AssertionError("u edge ragged: codes differ")
+    # plane lengths at the dense pass's word, warp and block edges, with
+    # no special, one, the edge ones and one in eight positions
+    for nb in UNPACK_NB:
+        n = 4 * nb
+        m_real = max(n - 7, 0)
+        for side, idx in (("none", []), ("one", rng.integers(0, n, 1)),
+                          ("edges", [0, max(m_real - 1, 0), n - 1]),
+                          ("eighth", rng.integers(0, n, max(n // 8, 1)))):
+            idx = torch.from_numpy(np.unique(idx).astype(np.int32)).to(dev)
+            pb = torch.from_numpy(rng.integers(0, 256, nb, dtype=np.uint8))
+            pb = pb.to(dev)
+            val = torch.randint(4, 6, idx.shape, dtype=torch.uint8,
+                                device=dev)
+            before = pack2.unpack_codes.launches
+            got = pack2.unpack_codes(pb, idx, val, m_real)
+            torch.cuda.synchronize()
+            if pack2.unpack_codes.launches != before + 1 or not torch.equal(
+                    got, pack2.unpack_codes_plain(pb, idx, val, m_real)):
+                raise AssertionError(f"u nb {nb} {side}: kernel != plain "
+                                     "or not one launch")
     _log(f"[wire u] edges: {', '.join(cases)}, ragged last word: codes == "
          "host codes; the gate + 1 and half-N queries took the plain copy "
-         "(no launch)")
+         f"(no launch); nb {UNPACK_NB} x (no special, one, the edges, one "
+         "in eight): kernel == plain, one launch each")
 
 
 def _phase_u(pack2, seed_mode) -> dict:
@@ -653,19 +684,58 @@ def _edge_triples(ref, qry, stride: int, k: int, seed: int):
     return diag, qs, qs + rng.integers(0, 4, qs.size)
 
 
+def _window_triples(n: int, m: int, stride: int, k: int):
+    """int64 numpy (diag, qs_s, qe_s) whose windows lie at every distance
+    d = 0..33 from both ends of both texts: for each d, side and end, one
+    triple puts that side's reference window and (exactly at stride 1, at
+    the sample position at or below it otherwise) its query window d bytes
+    from that end, and one more pairs the query's end with the
+    reference's other end (tests/test_torch_cuda.py's triples)."""
+    import numpy as np
+
+    d = np.arange(34)
+    q_l = np.concatenate([d + 16, m - d])
+    r_l = np.concatenate([d + 16, n - d])
+    q_r = np.concatenate([d, m - 16 - d])
+    r_r = np.concatenate([d, n - 16 - d])
+    qs_l = q_l // stride
+    qe_r = (q_r - k) // stride
+    diag = np.concatenate([r_l - qs_l * stride, r_l[::-1] - qs_l * stride,
+                           r_r - (qe_r * stride + k),
+                           r_r[::-1] - (qe_r * stride + k)])
+    qs = np.concatenate([qs_l, qs_l, qe_r - 1, qe_r - 1])
+    qe = np.concatenate([qs_l + 1, qs_l + 1, qe_r, qe_r])
+    return diag, qs, qe
+
+
+def _window_sectors(t, start):
+    """32-byte sectors of device memory under each window [start, start +
+    16) of text t, clipped to the text (0 for a window outside it)."""
+    import torch
+
+    a, b = start.clamp(0, t.numel()), (start + 16).clamp(0, t.numel())
+    first = (t.data_ptr() + a) // 32
+    last = (t.data_ptr() + b - 1) // 32
+    return torch.where(b > a, last - first + 1, 0)
+
+
 def _extend_phase(seed_mode, tap, label: str, args) -> dict:
     """Phase e at one input: the extension kernel (extend_runs) against its
     plain version (_extend_core over ext_arrays of both texts) on the card,
     exact, on the merged, span-filtered runs one engine call extended
-    (``args``, the tap's record) and on edge triples over the same texts
-    (_edge_triples); then, on the engine's runs, times by CUDA events: the
-    raw launch, the wrapper, the plain version as defined (both tables
-    built) and its core alone (tables built beforehand, as the engine had
-    them cached for the reference). Bound from this input: bytes = 40 per
+    (``args``, the tap's record), on edge triples over the same texts
+    (_edge_triples) and on window triples (_window_triples, at the run's
+    stride and at stride 1), these three with both texts copied into views
+    at byte offsets 0..15 of larger buffers (one launch each); then, on
+    the engine's runs, times by CUDA events: the raw launch, the wrapper,
+    the plain version as defined (both tables built) and its core alone
+    (tables built beforehand, as the engine had them cached for the
+    reference). Bound from this input: bytes = 40 per
     run (three int64 in, two out) + the text characters each result
     depends on (from each boundary out to the first mismatch or special,
     at most 16, inside the text, in both texts); operations = one compare
-    per character pair + 10 per run."""
+    per character pair + 10 per run. Sector bound: 40 B per run + the
+    32-byte sectors under its four windows, at the memory rate."""
     import torch
 
     from slamem_tpu_torch.kernels.extend import load_kernel
@@ -676,27 +746,47 @@ def _extend_phase(seed_mode, tap, label: str, args) -> dict:
     n, m = ref.numel(), qry.numel()
     edges = [torch.from_numpy(x).to(dev) for x in _edge_triples(
         args[3].numpy(), args[4].numpy(), stride, k, 20260816)]
+    windows = [torch.from_numpy(x).to(dev)
+               for x in _window_triples(n, m, stride, k)]
+    windows_1 = [torch.from_numpy(x).to(dev)
+                 for x in _window_triples(n, m, 1, k)]
+    ext_r, ext_q = tap.arrays(ref), tap.arrays(qry)
 
     def plain(d, a, b):
         return seed_mode._extend_core(d, a, b, tap.arrays(ref),
                                       tap.arrays(qry), stride, k)
 
     err = 0
-    for name, (d, a, b) in (("engine runs", (diag, qs_s, qe_s)),
-                            ("edge triples", edges)):
-        before = tap.extend.launches
-        got = tap.extend(d, a, b, ref, qry, stride, k)
-        want = plain(d, a, b)
-        torch.cuda.synchronize()
-        if tap.extend.launches != before + 1:
-            raise AssertionError(f"e {label} {name}: no kernel launch")
-        err = max(err, *(int((g - w).abs().max()) for g, w in zip(got,
-                                                                   want)))
-        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"e {label} {name}: kernel != plain (max "
-                                 f"abs err {err})")
-    qstart, qend = tap.extend(diag, qs_s, qe_s, ref, qry, stride, k)
-    ext_r, ext_q = tap.arrays(ref), tap.arrays(qry)
+    cases = (("engine runs", (diag, qs_s, qe_s), stride),
+             ("edge triples", edges, stride),
+             ("window triples", windows, stride),
+             ("window triples, stride 1", windows_1, 1))
+    wants = {}
+    bufs = [torch.empty(t.numel() + 16, dtype=torch.uint8, device=dev)
+            for t in (ref, qry)]
+    for name, (d, a, b), s in cases:
+        wants[name] = seed_mode._extend_core(d, a, b, ext_r, ext_q, s, k)
+        # the engine's texts, else copies at byte offsets 0..15 of bufs
+        offsets = [None] if name == "engine runs" else range(16)
+        for r in offsets:
+            rt, qt = ref, qry
+            if r is not None:
+                rt, qt = (buf[r:r + t.numel()].copy_(t)
+                          for buf, t in zip(bufs, (ref, qry)))
+            before = tap.extend.launches
+            got = tap.extend(d, a, b, rt, qt, s, k)
+            torch.cuda.synchronize()
+            if tap.extend.launches != before + 1:
+                raise AssertionError(f"e {label} {name}: no kernel launch")
+            err = max(err, *(int((g - w).abs().max())
+                             for g, w in zip(got, wants[name])))
+            if err or not all(torch.equal(g, w)
+                              for g, w in zip(got, wants[name])):
+                raise AssertionError(f"e {label} {name} (texts at byte "
+                                     f"offset {r}): kernel != plain (max "
+                                     f"abs err {err})")
+    qstart, qend = wants["engine runs"]
+    del wants, bufs
     fn = load_kernel().fn
     out = (torch.empty_like(diag), torch.empty_like(diag))
     stream = torch.cuda.current_stream().cuda_stream
@@ -727,22 +817,33 @@ def _extend_phase(seed_mode, tap, label: str, args) -> dict:
     bound_ops = chars // 2 + 10 * nr
     bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    rs, rb = (qs + diag).clamp(0, n), (qe_b + diag).clamp(0, n)
+    qsc, qbc = qs.clamp(0, m), qe_b.clamp(0, m)
+    sectors = int(sum(_window_sectors(t, start).sum() for t, start in (
+        (qry, qsc - 16), (ref, rs - 16), (qry, qbc), (ref, rb))))
+    sector_bytes = 40 * nr + 32 * sectors
     ext = (qs - qstart) + (qend - qe_core)
     res = {"runs": nr, "edge_triples": int(edges[0].numel()),
+           "window_triples": int(windows[0].numel()), "view_offsets": 16,
            "stride": stride, "k": k, "ref_codes": n, "query_codes": m,
            "extended_runs": int((ext > 0).sum()),
            "max_ext": int(ext.max()) if nr else 0, "chars": chars,
-           "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-           "plain_core_ms": core_ms, "max_abs_err": err,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "sectors": sectors, "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "plain_core_ms": core_ms,
+           "max_abs_err": err, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3}
     _log(f"[extend e] {label}: {nr} merged, span-filtered runs (K={k}, "
          f"stride {stride}; texts {n} + {m} codes) + "
-         f"{res['edge_triples']} edge triples: kernel == plain; kernel "
-         f"{ms:.6f} ms (wrapper {wrapper_ms:.6f} ms), plain {plain_ms:.6f} "
-         f"ms (its core alone, tables built: {core_ms:.6f} ms); bound "
-         f"{res['bound_ms']:.6f} ms (bytes {bound_bytes}: {bytes_ms:.6f} ms,"
-         f" ops {bound_ops}: {ops_ms:.6f} ms); {res['extended_runs']} runs "
+         f"{res['edge_triples']} edge triples + {res['window_triples']} "
+         f"window triples (at stride {stride} and 1; the edge and window "
+         f"triples with the texts at byte offsets 0..15): kernel == "
+         f"plain; kernel {ms:.6f} ms (wrapper {wrapper_ms:.6f} ms), plain "
+         f"{plain_ms:.6f} ms (its core alone, tables built: {core_ms:.6f} "
+         f"ms); bound {res['bound_ms']:.6f} ms (bytes {bound_bytes}: "
+         f"{bytes_ms:.6f} ms, ops {bound_ops}: {ops_ms:.6f} ms); sector "
+         f"bound {res['sector_bound_ms']:.6f} ms ({sectors} sectors + 40 B "
+         f"a run: {sector_bytes} B); {res['extended_runs']} runs "
          f"extended, by at most {res['max_ext']}")
     return res
 

@@ -1,6 +1,7 @@
-"""Loader of the 2-bit unpack kernel (``csrc/unpack2.cu``), the device half
-of the packed upload wire. The wrapper, its plain version and the host half
-are in ``utils/pack2.py``. Nothing is built when this module is imported.
+"""Loader of the 2-bit unpack kernels (``csrc/unpack2.cu``: the dense pass
+and the specials' scatter, behind one C entry), the device half of the
+packed upload wire. The wrapper, its plain version and the host half are in
+``utils/pack2.py``. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations

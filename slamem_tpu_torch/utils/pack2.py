@@ -91,11 +91,12 @@ def _check(pb: torch.Tensor, spec_idx: torch.Tensor,
 def unpack_codes(pb: torch.Tensor, spec_idx: torch.Tensor,
                  spec_val: torch.Tensor, m_real: int) -> torch.Tensor:
     """Device half of the wire: (4 * len(pb),) uint8 codes, as
-    ``unpack_codes_plain``. ``spec_idx`` must be sorted ascending.
+    ``unpack_codes_plain``. The indices of ``spec_idx`` must be distinct.
 
-    CUDA tensors launch the kernel of ``kernels/csrc/unpack2.cu`` on the
-    current stream, without synchronising, and count the launch in
-    ``unpack_codes.launches``; CPU tensors take ``unpack_codes_plain``.
+    CUDA tensors run the kernels of ``kernels/csrc/unpack2.cu`` on the
+    current stream, without synchronising: one call is one launch (the
+    dense pass) or two (then the specials' scatter), counted once in
+    ``unpack_codes.launches``. CPU tensors take ``unpack_codes_plain``.
     """
     _check(pb, spec_idx, spec_val)
     if pb.device.type == "cpu":

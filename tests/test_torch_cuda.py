@@ -171,20 +171,38 @@ def test_scan_lanes_equals_plain_loop(cuda, n, layout, L, lane_block):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
+# plane lengths around the dense pass's word (4 bytes), warp (128 words)
+# and block (1,024 words) edges, with the tail from m_real = 4 nb - 7
+_NB_RESIDUES = [(nb, min(7, 4 * nb), side)
+                for nb in (1, 2, 3, 5, 15, 16, 17, 63, 64, 65, 4095, 4096,
+                           4097, 16385, 70_001)
+                for side in ("none", "one", "edges", "dense")]
+# the tail inside the j-th of a thread's four words (block 1, warp 3, lane
+# 5; code 7 of the word), nb = 8192
+_TAIL_IN_WORD = [(8192, 4 * 8192 - (16 * (1024 + 3 * 128 + 32 * j + 5) + 7),
+                  side) for j in range(4) for side in ("none", "edges")]
+
+
 @pytest.mark.parametrize("nb,m_cut,side", [
     (1, 1, "edges"), (3, 0, "edges"), (5, 3, "edges"), (4096, 0, "none"),
-    (4097, 37, "edges"), (70_001, 5, "dense"), (70_001, 0, "oob")])
+    (4097, 37, "edges"), (70_001, 5, "dense"), (70_001, 0, "oob"),
+    *_NB_RESIDUES, *_TAIL_IN_WORD])
 def test_unpack_kernel_equals_plain(cuda, nb, m_cut, side):
     """The unpack kernel == unpack_codes_plain on the card: ragged last
-    words (nb % 4 != 0), a tail of CODE_N from m_real = 4 nb - m_cut,
-    specials at position 0, m_real - 1 and in the last word, none, one in
-    eight positions, and dropped indices past the end; one launch each."""
+    words (nb % 4 != 0), plane lengths around the dense pass's word, warp
+    and block edges, a tail of CODE_N from m_real = 4 nb - m_cut (also cut
+    inside each of a thread's four words), specials at position 0,
+    m_real - 1 and in the last word (with 20 random ones, or one in eight
+    positions), none, one, and dropped indices past the end; one launch
+    counted per call, whether the specials' scatter ran or not."""
     rng = np.random.default_rng(nb + m_cut)
     n = 4 * nb
     m_real = n - m_cut
     pb = torch.from_numpy(rng.integers(0, 256, nb).astype(np.uint8))
     idx = np.zeros(0, np.int64)
-    if side != "none":
+    if side == "one":
+        idx = rng.integers(0, n, 1)
+    elif side != "none":
         idx = np.concatenate([[0, max(m_real - 1, 0), n - 1],
                               rng.integers(0, n, n // 8 if side == "dense"
                                            else 20)])
@@ -368,6 +386,61 @@ def test_extend_kernel_equals_plain(cuda, k, stride):
                                   stride, k)
     assert seed_mode.extend_runs.launches == before + 1
     assert all(e.numel() == 0 for e in empty)
+
+
+def _window_triples(n: int, m: int, stride: int, k: int):
+    """int64 (diag, qs_s, qe_s) whose windows lie at every distance d =
+    0..33 from both ends of both texts: for each d, side and end, one
+    triple puts that side's reference window and (exactly at stride 1, at
+    the sample position at or below it otherwise) its query window d bytes
+    from that end, and one more pairs the query's end with the
+    reference's other end (tests/test_torch_extend.py's triples)."""
+    d = np.arange(34)
+    q_l = np.concatenate([d + 16, m - d])
+    r_l = np.concatenate([d + 16, n - d])
+    q_r = np.concatenate([d, m - 16 - d])
+    r_r = np.concatenate([d, n - 16 - d])
+    qs_l = q_l // stride
+    qe_r = (q_r - k) // stride
+    diag = np.concatenate([r_l - qs_l * stride, r_l[::-1] - qs_l * stride,
+                           r_r - (qe_r * stride + k),
+                           r_r[::-1] - (qe_r * stride + k)])
+    qs = np.concatenate([qs_l, qs_l, qe_r - 1, qe_r - 1])
+    qe = np.concatenate([qs_l + 1, qs_l + 1, qe_r, qe_r])
+    return diag, qs, qe
+
+
+def _offset_view(text: torch.Tensor, r: int) -> torch.Tensor:
+    """A copy of ``text`` as the view big[r:r + n] of a larger buffer (its
+    address r modulo 16: the caching allocator aligns ``big``)."""
+    big = torch.full((text.numel() + 32,), 7, dtype=torch.uint8,
+                     device=text.device)
+    view = big[r:r + text.numel()]
+    view.copy_(text)
+    assert view.data_ptr() % 16 == r
+    return view
+
+
+@pytest.mark.parametrize("k,stride", [(13, 1), (14, 14), (24, 7)])
+def test_extend_kernel_alignment_and_edges(cuda, k, stride):
+    """The extension kernel == _extend_core on triples whose windows lie
+    at every distance 0..33 from both ends of both texts, plus random and
+    edge triples, with both texts passed as views at every byte offset
+    r = 1..15 of larger buffers (and at 0); one launch each."""
+    ref, qry = _extend_texts(60_000, 197)
+    parts = zip(_window_triples(len(ref), len(qry), stride, k),
+                _extend_triples(len(ref), len(qry), stride, k, 198))
+    trip = [torch.from_numpy(np.concatenate(p)).to(cuda) for p in parts]
+    texts = [torch.from_numpy(x).to(cuda) for x in (ref, qry)]
+    want = seed_mode._extend_core(*trip, seed_mode.ext_arrays(texts[0]),
+                                  seed_mode.ext_arrays(texts[1]), stride, k)
+    for r in range(16):
+        views = [_offset_view(t, r) for t in texts]
+        before = seed_mode.extend_runs.launches
+        got = seed_mode.extend_runs(*trip, *views, stride, k)
+        torch.cuda.synchronize()
+        assert seed_mode.extend_runs.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), r
 
 
 def test_extend_runs_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):

@@ -3,16 +3,19 @@
 * ``extend_runs`` (its CPU route, ``_extend_core`` over ``ext_arrays``)
   against the JAX package's ``extend_runs`` over its ``ext_arrays``;
 * a numpy model of the CUDA kernel's per-run arithmetic
-  (``kernels/csrc/extend.cu``: 16-byte windows with out-of-range bytes as
-  N, the per-lane equal-and-ordinary byte mask, the 16-bit run mask, its
-  leading / trailing one counts) against the same JAX outputs, since the
-  kernel itself runs only on a card (tests/test_torch_cuda.py);
+  (``kernels/csrc/extend.cu``: each 16-byte window from the aligned 32
+  bytes around it, by a word select and a funnel shift, or byte by byte
+  with out-of-range bytes as N within 32 bytes of a text's end; the
+  per-lane equal-and-ordinary byte mask, the 16-bit run mask, its leading
+  / trailing one counts) against the same JAX outputs, since the kernel
+  itself runs only on a card (tests/test_torch_cuda.py);
 * ``merge_runs_device`` against the JAX package's ``merge_runs`` plus the
   span filter, on the run fragments of several rounds.
 
-Triples: real merged runs, random ones, and ones placed at both text
-edges, beyond them (the clamps), and beside N runs and separators.
-Tolerance: exact — every value is an integer.
+Triples: real merged runs, random ones, ones placed at both text edges,
+beyond them (the clamps) and beside N runs and separators, and windows at
+every distance 0..33 from both ends of both texts; the texts also at every
+base-address residue 0..15. Tolerance: exact — every value is an integer.
 """
 
 import jax.numpy as jnp
@@ -164,14 +167,36 @@ def test_extend_runs_checks_arguments(texts):
 _BYTE_SHIFTS = np.array([0, 8, 16, 24], np.uint32)
 
 
-def _window_lanes(text, start):
+def _words(b):
+    """(..., 4 w) uint8 -> (..., w) little-endian uint32 words."""
+    b = b.astype(np.uint32).reshape(*b.shape[:-1], -1, 4) << _BYTE_SHIFTS
+    return np.bitwise_or.reduce(b, axis=-1)
+
+
+def _bytewise_lanes(text, start):
     """(nr, 4) uint32 lanes of bytes [start, start + 16), little-endian,
-    a byte outside the text read as N (window_lane)."""
+    a byte outside the text read as N (the slow path, window_lane)."""
     pos = start[:, None] + np.arange(16)
     ok = (pos >= 0) & (pos < text.size)
-    b = np.where(ok, text[np.clip(pos, 0, text.size - 1)], 4)
-    b = b.astype(np.uint32).reshape(-1, 4, 4) << _BYTE_SHIFTS
-    return np.bitwise_or.reduce(b, axis=2)
+    return _words(np.where(ok, text[np.clip(pos, 0, text.size - 1)], 4))
+
+
+def _window_lanes(text, start):
+    """The same lanes as load_window + window_lanes read them: where the
+    aligned span [lo, lo + 32), lo = start - (address of text[start]) %
+    16, lies inside the text, its eight words, a select of whole words and
+    a funnel shift; elsewhere bytewise. Also returns which windows took
+    the fast path."""
+    off = (text.ctypes.data + start) & 15
+    lo = start - off
+    fast = (lo >= 0) & (lo + 32 <= text.size)
+    pos = np.where(fast, lo, 0)[:, None] + np.arange(32)
+    c = _words(text[np.clip(pos, 0, text.size - 1)])        # (nr, 8)
+    s = np.take_along_axis(c, (off >> 2)[:, None] + np.arange(5), axis=1)
+    sh = (8 * (off & 3)).astype(np.uint64)[:, None]
+    pair = s[:, :4].astype(np.uint64) | (s[:, 1:].astype(np.uint64) << 32)
+    x = ((pair >> sh) & 0xFFFFFFFF).astype(np.uint32)     # __funnelshift_r
+    return np.where(fast[:, None], x, _bytewise_lanes(text, start)), fast
 
 
 def _per_byte(x, y, op):
@@ -183,9 +208,8 @@ def _per_byte(x, y, op):
     return out
 
 
-def _match_mask(a, sa, b, sb):
+def _match_mask(x, y):
     """16-bit mask, bit j: window byte j equal and ordinary in both."""
-    x, y = _window_lanes(a, sa), _window_lanes(b, sb)
     hit = (_per_byte(x, y, np.equal)
            & _per_byte(x, np.full_like(x, 0x04040404), np.less))
     bits = (((hit >> 7) & 1) | ((hit >> 14) & 2) | ((hit >> 21) & 4)
@@ -202,18 +226,23 @@ def _bit_length(x):
 
 
 def _kernel_model(diag, qs_s, qe_s, ref, qry, stride, k):
+    """(qstart', qend') as the kernel computes them, and the (nr, 4)
+    fast-path flags of the windows (left query, left reference, right
+    query, right reference)."""
     n, m = ref.size, qry.size
     qs = qs_s * stride
     qe_core = qe_s * stride
     qe_b = qe_core + k
     rs, rb = np.clip(qs + diag, 0, n), np.clip(qe_b + diag, 0, n)
     qsc, qbc = np.clip(qs, 0, m), np.clip(qe_b, 0, m)
-    left = _match_mask(qry, qsc - 16, ref, rs - 16)
-    right = _match_mask(qry, qbc, ref, rb)
+    wins = [_window_lanes(qry, qsc - 16), _window_lanes(ref, rs - 16),
+            _window_lanes(qry, qbc), _window_lanes(ref, rb)]
+    left = _match_mask(wins[0][0], wins[1][0])
+    right = _match_mask(wins[2][0], wins[3][0])
     clz = 32 - _bit_length(~(left << np.uint32(16)))        # __clz
     inv = ~right
     ffs = _bit_length(inv & (~inv + np.uint32(1)))          # __ffs
-    return qs - clz, qe_core + (ffs - 1)
+    return qs - clz, qe_core + (ffs - 1), np.stack([w[1] for w in wins], 1)
 
 
 @pytest.mark.parametrize("k,stride", _CASES)
@@ -226,6 +255,74 @@ def test_kernel_window_model_equal_jax(texts, k, stride):
     got = _kernel_model(*trip, ref, qp, stride, k)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+    assert 0.5 < got[2].mean() < 1       # both paths, mostly the fast one
+
+
+def _window_triples(n, m, stride, k):
+    """int64 (diag, qs_s, qe_s) whose windows lie at every distance d =
+    0..33 from both ends of both texts: for each d, side and end, one
+    triple puts that side's reference window and (exactly at stride 1, at
+    the sample position at or below it otherwise) its query window d bytes
+    from that end, and one more pairs the query's end with the
+    reference's other end."""
+    d = np.arange(34)
+    q_l = np.concatenate([d + 16, m - d])      # left boundaries: start, end
+    r_l = np.concatenate([d + 16, n - d])
+    q_r = np.concatenate([d, m - 16 - d])      # right boundaries
+    r_r = np.concatenate([d, n - 16 - d])
+    qs_l = q_l // stride
+    qe_r = (q_r - k) // stride
+    diag = np.concatenate([r_l - qs_l * stride, r_l[::-1] - qs_l * stride,
+                           r_r - (qe_r * stride + k),
+                           r_r[::-1] - (qe_r * stride + k)])
+    qs = np.concatenate([qs_l, qs_l, qe_r - 1, qe_r - 1])
+    qe = np.concatenate([qs_l + 1, qs_l + 1, qe_r, qe_r])
+    return diag, qs, qe
+
+
+def _at_offset(text, r):
+    """text copied into a larger array, as a view whose address is r
+    modulo 16."""
+    big = np.full(text.size + 48, 7, np.uint8)
+    a = -big.ctypes.data % 16 + r
+    big[a:a + text.size] = text
+    return big[a:a + text.size]
+
+
+@pytest.mark.parametrize("r", range(16))
+def test_kernel_model_alignment_equal_jax(texts, r):
+    """The model with both texts at base-address residue r (the reference
+    at residue 3 r % 16, so the two differ) == the JAX package's
+    extend_runs, on the real, random, edge and window triples; both paths
+    taken."""
+    ref, qp, _ = texts
+    k, stride = _CASES[0]
+    trip = tuple(np.concatenate(p) for p in zip(
+        _triples(texts, k, stride), _window_triples(len(ref), len(qp),
+                                                    stride, k)))
+    want = _jax_extend(texts, trip, k, stride)
+    got = _kernel_model(*trip, _at_offset(ref, 3 * r % 16),
+                        _at_offset(qp, r), stride, k)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert got[2].any() and not got[2].all()
+
+
+@pytest.mark.parametrize("k,stride", [(13, 1), (24, 1), (14, 14)])
+def test_kernel_model_edges_equal_jax(texts, k, stride):
+    """Windows at every distance 0..33 from both ends of both texts, with
+    the texts at every base-address residue: the model == the JAX
+    package's extend_runs; the windows within 32 bytes of an end take the
+    slow path."""
+    ref, qp, _ = texts
+    trip = _window_triples(len(ref), len(qp), stride, k)
+    want = _jax_extend(texts, trip, k, stride)
+    for r in range(16):
+        got = _kernel_model(*trip, _at_offset(ref, r), _at_offset(qp, r),
+                            stride, k)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+        assert not got[2][:, 1].all() and got[2].any()
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 The same numpy inputs (from seeds) go through ``slamem_tpu`` and
 ``slamem_tpu_torch`` on the CPU: the C packer, its numpy version and the
 JAX packer; the plain unpack (the CUDA kernel's reference, and what
-``unpack_codes`` runs on CPU tensors) and the JAX ``unpack_codes``;
+``unpack_codes`` runs on CPU tensors), a numpy model of the kernel
+(``kernels/csrc/unpack2.cu``: its thread-to-word map, tail mask and the
+specials' second launch) and the JAX ``unpack_codes``;
 ``codes_to_device``, ``query_to_device`` and the index built from a text
 that rides the wire. Tolerance: exact — every compared array is uint8 or
 integer and must be equal bit for bit.
@@ -144,6 +146,100 @@ def test_unpack_plain_equals_jax(case):
     assert np.array_equal(plain.numpy(), want)
     assert np.array_equal(pack2.unpack_codes(*args).numpy(), want)
     assert pack2.unpack_codes.launches == before    # no kernel on the CPU
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of csrc/unpack2.cu, step for step
+# ---------------------------------------------------------------------------
+
+_THREADS, _WARP, _WORDS = 256, 32, 4    # per block; lanes; words per thread
+
+
+def _thread_words(nb):
+    """The dense pass's map: (threads, 4) plane word of each thread's j-th
+    load (the warp's first word + 32 j + the lane) and its plane bytes
+    (4, 1..3 for the ragged last word, 0 past the plane), over the grid
+    slamem_unpack_codes launches."""
+    nwords = -(-nb // 4)
+    blocks = -(-nwords // (_THREADS * _WORDS))
+    t = np.arange(blocks * _THREADS)
+    w = ((t // _WARP) * _WARP * _WORDS + t % _WARP)[:, None] \
+        + _WARP * np.arange(_WORDS)
+    return w, np.clip(nb - 4 * w, 0, 4)
+
+
+def _unpack_model(pb, idx, val, m_real):
+    """unpack2.cu's output: each word's 16 codes expanded, the tail byte
+    mask per 4-code lane, the store (16 bytes, or 4 per plane byte of the
+    ragged word), then the specials' scatter; also how often each output
+    byte was stored by the dense pass."""
+    nb = pb.size
+    w, nbytes = _thread_words(nb)
+    w, nbytes = w[nbytes > 0], nbytes[nbytes > 0]
+    plane = np.zeros(4 * (nb // 4 + 1), np.uint8)
+    plane[:nb] = pb
+    b = plane.reshape(-1, 4)[w].astype(np.uint32)           # (words, 4)
+    o = np.zeros(b.shape, np.uint32)                        # 4-code lanes
+    for c in range(4):
+        o |= ((b >> np.uint32(2 * c)) & 3) << np.uint32(8 * c)
+    keep = m_real - 16 * w[:, None] - 4 * np.arange(4)      # live bytes
+    mask = np.where(keep <= 0, 0, 0xFFFFFFFF >> (
+        32 - 8 * np.clip(keep, 1, 4))).astype(np.uint32)
+    o = (o & mask) | (np.uint32(0x04040404) & ~mask)
+    codes = ((o[:, :, None] >> np.arange(0, 32, 8, dtype=np.uint32))
+             & 0xFF).reshape(-1, 16).astype(np.uint8)
+    pos = 16 * w[:, None] + np.arange(16)
+    stored = np.arange(16) < 4 * nbytes[:, None]
+    out = np.zeros(4 * nb, np.uint8)
+    writes = np.zeros(4 * nb, np.int64)
+    out[pos[stored]] = codes[stored]
+    np.add.at(writes, pos[stored], 1)
+    ok = (idx >= 0) & (idx < 4 * nb)                        # second launch
+    out[idx[ok]] = val[ok]
+    return out, writes
+
+
+@pytest.mark.parametrize("nb", [8192 + r for r in range(16)]
+                         + [1, 3, 5, 63, 64, 65, 4097])
+def test_unpack_thread_map_covers_every_word_once(nb):
+    """Every plane word is loaded by exactly one (thread, j), a warp's j-th
+    loads are 32 consecutive words (128 contiguous bytes), every output
+    byte is stored once; the model == unpack_codes_plain with the tail cut
+    inside the last few words and specials at both ends."""
+    w, nbytes = _thread_words(nb)
+    nwords = -(-nb // 4)
+    live = np.sort(w[nbytes > 0])
+    assert np.array_equal(live, np.arange(nwords))
+    assert np.array_equal(np.sort(w.ravel()), np.arange(w.size))
+    assert (nbytes[nbytes > 0] < 4).sum() == (nb % 4 > 0)
+    warps = w.reshape(-1, _WARP, _WORDS)
+    assert (np.diff(warps, axis=1) == 1).all()
+    rng = np.random.default_rng(nb)
+    pb = rng.integers(0, 256, nb).astype(np.uint8)
+    m_real = 4 * nb - int(rng.integers(0, min(4 * nb, 70)))
+    idx = np.unique(np.concatenate([[0, max(m_real - 1, 0), 4 * nb - 1],
+                                    rng.integers(0, 4 * nb, 9)]))
+    idx = idx.astype(np.int32)
+    val = rng.integers(4, 6, idx.size).astype(np.uint8)
+    got, writes = _unpack_model(pb, idx, val, m_real)
+    assert (writes == 1).all()
+    want = pack2.unpack_codes_plain(torch.from_numpy(pb),
+                                    torch.from_numpy(idx),
+                                    torch.from_numpy(val), m_real)
+    assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("case", UNPACK_CASES)
+def test_unpack_model_equals_jax(case):
+    """The model of the two launches == the JAX unpack_codes on the same
+    (pb, idx, val, m_real), out-of-range indices dropped."""
+    pb, idx, val, m_real = _unpack_case(case)
+    want = np.asarray(jpack2.unpack_codes(jnp.asarray(pb), jnp.asarray(idx),
+                                          jnp.asarray(val),
+                                          jnp.int32(m_real)))
+    got, writes = _unpack_model(pb, idx, val, m_real)
+    assert (writes == 1).all()
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("bad", ["pb_dtype", "idx_dtype", "shape", "dim"])
