@@ -6,8 +6,11 @@ Phases, each of which raises on failure (exit status non-zero):
   1. build the kernel libraries from the checkout, one nvcc (sm_90a) per
      source, all started together: the rank library (csrc/rank.cu: the
      standalone K0 and nibble kernels and the scan kernel on both layouts),
-     the unpack kernel of the packed upload wire (csrc/unpack2.cu) and the
-     endpoint-extension kernel of the seed engine (csrc/extend.cu);
+     the unpack kernel of the packed upload wire (csrc/unpack2.cu), the
+     endpoint-extension kernel of the seed engine (csrc/extend.cu), the key
+     kernels of the seed tables (csrc/seedkeys.cu: the seed table's rows
+     and the query's key pack) and the bucket-start kernel
+     (csrc/buckets.cu);
   2. hold each standalone rank kernel against its plain PyTorch version,
      exact integer equality, and time both: K0 (rank_rows, interleaved
      table) and the nibble kernel (rank_rows_nib, nibble table), each on
@@ -85,6 +88,24 @@ Phases, each of which raises on failure (exit status non-zero):
      kernel exactly once and built no extension table (ext_arrays) on the
      card (a tap stands in for seed_mode.extend_runs and ext_arrays and
      calls them; it also keeps 5d's and 6a's merged runs for phase e);
+     each CLI call of 5a-5d, 6a, 6b and 9a must have launched the seed
+     table's kernel once, the key pack once and the bucket-start kernel
+     once (5a-5c, 6a, 9a), never (5d, the join frontend) or once a slab
+     (6b: 8);
+     t. the seed tables' kernels against their plain versions on the card,
+        exact, timed by CUDA events (raw launch, wrapper, plain), each with
+        its bound: at the 5 Mbp index after 5d the seed table at 5a's K
+        (13) and 5d's (14), 5a's direct bucket table (2^26 + 1 entries)
+        and 5a's query's key pack (K 13, stride 8), and two-word keys (K =
+        20: seed table, bucket table with shift 8 and probes); at config
+        #5's index after 9b the seed table (K 14; plus its sector bound),
+        6a's direct bucket table (2^28 + 1), 6b's 8 ranged slab tables (R =
+        2^26) and 6a's query's key pack (K 14, stride 14). The bucket
+        tables also against torch.searchsorted of the rows' prefixes over
+        every bucket (equal, timed: the library yardstick) and, for one
+        table, the old cold path (_build_bucket_table over _key_word0):
+        with the plain seed table, the split of the old ``tables`` stage;
+        each also logs its largest bucket and its widest gaps;
   7. the boundary match backend (``Config(match_backend="boundary")``,
      dense seeding at stride 1) through run_engine on the card:
      7a. the headline pair at ``-l 20``: 59,101, bytes == 5a's listing;
@@ -141,13 +162,14 @@ Phases, each of which raises on failure (exit status non-zero):
      bound from the runs' bytes and the sector bound (40 B a run + the
      32-byte sectors under its four windows).
 Phases run in the order 1, 2, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
-5a, 9a, 7a, 5b, 5d, 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b, 9b, e. Prints
-the card and its power limit (nvidia-smi), a ``{"kernels": [...]}`` line
-(each kernel's launches on its path, exactness, time, plain time and
-lower bound; the standalone rank kernels' path is the scan kernel that
-runs their device function; the unpack and extension kernels' launches
-are 5a's, their times phase u's at the query shape and phase e's at 6a's
-runs), and last ``{"ok": true, "device": {...}}``. Imports no JAX.
+5a, 9a, 7a, 5b, 5d, t (5 Mbp), 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b,
+9b, t (config #5), e. Prints the card and its power limit (nvidia-smi), a
+``{"kernels": [...]}`` line (each kernel's launches on its path,
+exactness, time, plain time and lower bound; the standalone rank kernels'
+path is the scan kernel that runs their device function; the unpack,
+extension and table kernels' launches are 5a's, their times phase u's at
+the query shape, phase e's at 6a's runs and phase t's at 6a's shapes),
+and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -708,12 +730,12 @@ def _window_triples(n: int, m: int, stride: int, k: int):
     return diag, qs, qe
 
 
-def _window_sectors(t, start):
+def _window_sectors(t, start, length: int = 16):
     """32-byte sectors of device memory under each window [start, start +
-    16) of text t, clipped to the text (0 for a window outside it)."""
+    length) of text t, clipped to the text (0 for a window outside it)."""
     import torch
 
-    a, b = start.clamp(0, t.numel()), (start + 16).clamp(0, t.numel())
+    a, b = start.clamp(0, t.numel()), (start + length).clamp(0, t.numel())
     first = (t.data_ptr() + a) // 32
     last = (t.data_ptr() + b - 1) // 32
     return torch.where(b > a, last - first + 1, 0)
@@ -848,6 +870,240 @@ def _extend_phase(seed_mode, tap, label: str, args) -> dict:
     return res
 
 
+def _exact(label: str, got, want) -> int:
+    """Max abs difference of equal-shaped tensor tuples; raises unless
+    they are equal."""
+    import torch
+
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: kernel != plain (max abs err {err})")
+    return err
+
+
+def _bound(bound_bytes: int, bound_ops: int) -> dict:
+    bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_bytes": bound_bytes, "bound_ops": bound_ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _seed_table_t(seed_mode, label: str, index, k: int) -> dict:
+    """Phase t, the seed table of one index at one K: seed_table_rows'
+    kernel against seed_table_rows_plain on the card, exact (refk and
+    sa_aug); times by CUDA events of the raw launch, the wrapper and the
+    plain version (the old cold path: a key per text position, then two
+    gathers). Bound: bytes = 16 per row (sa in, refk and sa_aug out) + the
+    text once; operations = 2 K per row; sector bound = 16 B per row + the
+    32-byte sectors under each row's window."""
+    import torch
+
+    from slamem_tpu_torch.kernels.seedkeys import load_kernel
+
+    text, sa = index.text, index.sa
+    rows, n = sa.numel(), text.numel()
+    got = seed_mode.seed_table_rows(text, sa, k)
+    want = seed_mode.seed_table_rows_plain(text, sa, k)
+    torch.cuda.synchronize()
+    err = _exact(f"t {label} seed table", got, want)
+    del want
+    refk, sa_aug = got
+    fn = load_kernel().seed_table
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        if fn(text.data_ptr(), n, sa.data_ptr(), rows, k, refk.data_ptr(),
+              sa_aug.data_ptr(), stream):
+            raise RuntimeError("seed table kernel launch failed")
+
+    big = rows > 10 ** 8
+    ms = _cuda_ms(raw, 5 if big else 50)
+    wrapper_ms = _cuda_ms(lambda: seed_mode.seed_table_rows(text, sa, k),
+                          5 if big else 20)
+    plain_ms = _cuda_ms(lambda: seed_mode.seed_table_rows_plain(text, sa, k),
+                        2 if big else 5)
+    a = sa.to(torch.int64)
+    sectors = int(_window_sectors(text, a, k).sum())
+    del a
+    res = {"rows": rows, "k": k, "invalid_rows": int((sa_aug < 0).sum()),
+           "sectors": sectors, "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "max_abs_err": err,
+           **_bound(16 * rows + n, 2 * k * rows),
+           "sector_bound_ms": (16 * rows + 32 * sectors) / HBM_BYTES_PER_S
+           * 1e3}
+    _log(f"[tables t] {label} seed table: {rows} rows, K={k} "
+         f"({res['invalid_rows']} invalid): kernel == plain; kernel "
+         f"{ms:.6f} ms (wrapper {wrapper_ms:.6f} ms), plain {plain_ms:.6f} "
+         f"ms; bound {res['bound_ms']:.6f} ms ({res['bound_by']}: "
+         f"{res['bound_bytes']} B, {res['bound_ops']} ops); sector bound "
+         f"{res['sector_bound_ms']:.6f} ms ({sectors} sectors, "
+         f"{sectors / max(rows, 1):.3f} a row)")
+    return res
+
+
+def _bucket_t(seed_mode, label: str, k: int, bbits: int, shift: int,
+              slabs) -> dict:
+    """Phase t, one bucket table or a set of ranged slab tables (``slabs``:
+    (rows, base, real) each): bucket_starts' kernel against
+    bucket_starts_plain on the card, exact, and the largest bucket against
+    the plain one's (histogram max); torch.searchsorted of the rows'
+    prefixes over every bucket (the library call), == the starts; times by
+    CUDA events of the raw launches, the wrappers, the plain versions and
+    the library calls, over all the tables; for one direct or shifted
+    table also the old cold path (_build_bucket_table over _key_word0, its
+    host read included). The prefixes' gaps: the widest one a boundary
+    thread meets (its warp's when it is more than 32 entries), those
+    wider than 32, and the grid's (below the first row, above the last).
+    Bound: bytes = 8 per real row read + 4 per entry written; operations
+    = 4 per row + 1 per entry."""
+    import torch
+
+    from slamem_tpu_torch.kernels.buckets import load_kernel
+
+    dev = slabs[0][0].device
+    nb = 1 << bbits
+    outs, prefs = [], []
+    err = widest = wide = grid_gap = 0
+    for rows, base, real in slabs:
+        got = seed_mode.bucket_starts(rows, k, bbits, shift, base, real)
+        want = seed_mode.bucket_starts_plain(rows, k, bbits, shift, base,
+                                             real)
+        torch.cuda.synchronize()
+        err = max(err, _exact(f"t {label} bucket starts", (got,), (want,)))
+        rc = max(0, min(rows.numel(), real))
+        rel = seed_mode._key_word0(rows, k) - (base << shift)
+        rel[rc:] = seed_mode._PAD_WORD0 - (base << shift)
+        pref = (rel >> shift).clamp(max=nb - 1)
+        largest = seed_mode._build_bucket_table(rel, bbits, shift)[1]
+        if int((got[1:] - got[:-1]).max()) != largest:
+            raise AssertionError(f"t {label}: largest bucket != plain's")
+        del rel, want
+        # entries a boundary thread writes: pref(i) - pref(i - 1)
+        d = pref[1:rc] - pref[:max(rc - 1, 0)]
+        widest = max(widest, int(d.max()) if d.numel() else 0)
+        wide += int((d > 32).sum())
+        grid = [int(pref[0]) + 1, nb - int(pref[-1])]
+        if 0 < rc < rows.numel():           # the pads' gap
+            grid.append(int(pref[rc]) - int(pref[rc - 1]))
+        grid_gap = max(grid_gap, *grid)
+        outs.append(got)
+        prefs.append(pref)
+    ar = torch.arange(nb + 1, dtype=torch.int64, device=dev)
+    for got, pref in zip(outs, prefs):
+        lib = torch.searchsorted(pref, ar, side="left")
+        if not torch.equal(lib.to(torch.int32), got):
+            raise AssertionError(f"t {label}: searchsorted != the starts")
+    del lib
+    fn = load_kernel().fn
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        for (rows, base, real), out in zip(slabs, outs):
+            if fn(rows.data_ptr(), rows.numel(), real, k, base, shift, nb,
+                  out.data_ptr(), stream):
+                raise RuntimeError("bucket start kernel launch failed")
+
+    def wrapper():
+        for (rows, base, real), out in zip(slabs, outs):
+            seed_mode.bucket_starts(rows, k, bbits, shift, base, real, out)
+
+    def plain():
+        for rows, base, real in slabs:
+            seed_mode.bucket_starts_plain(rows, k, bbits, shift, base, real)
+
+    def library():
+        for pref in prefs:
+            torch.searchsorted(pref, ar, side="left")
+
+    big = nb * len(slabs) > 1 << 27
+    ms = _cuda_ms(raw, 5 if big else 50)
+    wrapper_ms = _cuda_ms(wrapper, 5 if big else 20)
+    plain_ms = _cuda_ms(plain, 2 if big else 5)
+    library_ms = _cuda_ms(library, 2 if big else 5)
+    old_ms = None
+    if len(slabs) == 1 and slabs[0][1] == 0:
+        w0 = seed_mode._key_word0(slabs[0][0], k)
+        old_ms = _cuda_ms(lambda: seed_mode._build_bucket_table(
+            w0, bbits, shift), 2 if big else 5)
+        del w0
+    del ar, prefs
+    real_rows = sum(min(rows.numel(), max(real, 0))
+                    for rows, _, real in slabs)
+    entries = len(slabs) * (nb + 1)
+    res = {"tables": len(slabs), "rows": sum(r.numel() for r, _, _ in slabs),
+           "real_rows": real_rows, "k": k, "bbits": bbits, "shift": shift,
+           "largest_bucket": max(int((g[1:] - g[:-1]).max()) for g in outs),
+           "widest_boundary_gap": widest, "gaps_over_32": wide,
+           "widest_grid_gap": grid_gap, "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "old_ms": old_ms,
+           "max_abs_err": err,
+           **_bound(8 * real_rows + 4 * entries, 4 * real_rows + entries)}
+    _log(f"[tables t] {label} bucket starts: {len(slabs)} table(s) of "
+         f"{nb + 1} entries over {res['rows']} rows ({real_rows} real), "
+         f"K={k}, shift {shift}: kernel == plain == searchsorted, largest "
+         f"bucket {res['largest_bucket']}; kernel {ms:.6f} ms (wrapper "
+         f"{wrapper_ms:.6f} ms), plain {plain_ms:.6f} ms, searchsorted "
+         f"{library_ms:.6f} ms, old path "
+         f"{'-' if old_ms is None else f'{old_ms:.6f} ms'}; bound "
+         f"{res['bound_ms']:.6f} ms ({res['bound_by']}); widest gap: a "
+         f"boundary's {widest} entries ({wide} over 32, the warp's), the "
+         f"grid's {grid_gap}")
+    del outs
+    return res
+
+
+def _pack_t(seed_mode, label: str, qt, k: int, stride: int) -> dict:
+    """Phase t, the query's key pack: packed_key_words' kernel against
+    packed_key_words_plain on the card, exact (keys and valid); times by
+    CUDA events of the raw launch, the wrapper and the plain version.
+    Bound: bytes = the text once + 9 per window (key and flag out);
+    operations = 2 K per window."""
+    import torch
+
+    from slamem_tpu_torch.kernels.seedkeys import load_kernel
+
+    n = qt.numel()
+    got = seed_mode.packed_key_words(qt, k, stride)
+    want = seed_mode.packed_key_words_plain(qt, k, stride)
+    torch.cuda.synchronize()
+    err = _exact(f"t {label} key pack", got, want)
+    keys, valid = got
+    ns = keys.numel()
+    fn = load_kernel().pack_keys
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        if fn(qt.data_ptr(), n, stride, k, keys.data_ptr(), valid.data_ptr(),
+              stream):
+            raise RuntimeError("key pack kernel launch failed")
+
+    ms = _cuda_ms(raw, 50)
+    wrapper_ms = _cuda_ms(lambda: seed_mode.packed_key_words(qt, k, stride),
+                          20)
+    plain_ms = _cuda_ms(lambda: seed_mode.packed_key_words_plain(
+        qt, k, stride), 5)
+    res = {"codes": n, "windows": ns, "k": k, "stride": stride,
+           "valid": int(valid.sum()), "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "max_abs_err": err,
+           **_bound(n + 9 * ns, 2 * k * ns)}
+    _log(f"[tables t] {label} key pack: {ns} windows of {n} codes, K={k}, "
+         f"stride {stride}: kernel == plain; kernel {ms:.6f} ms (wrapper "
+         f"{wrapper_ms:.6f} ms), plain {plain_ms:.6f} ms; bound "
+         f"{res['bound_ms']:.6f} ms ({res['bound_by']})")
+    return res
+
+
+def _direct_bucket_plan(index, k: int) -> tuple[int, int]:
+    """(bbits, shift) of seed_mode.bucket_table at this index and K."""
+    word0_bits = 2 * min(k, 16)
+    if word0_bits <= 28 and (1 << word0_bits) <= max(64 * index.n, 1 << 22):
+        return word0_bits, 0
+    bbits = min(word0_bits, 24)
+    return bbits, word0_bits - bbits
+
+
 def _listing_matches(path: str) -> list[tuple[int, int, int]]:
     out = []
     with open(path) as f:
@@ -902,15 +1158,33 @@ def _verbose_stats(stderr: str) -> dict:
                         re.findall(r"(\w+)=([0-9.]+)", search.group(2))}}
 
 
+def _table_launches(seed_mode) -> dict:
+    """The seed tables' kernel launches since the last reset (and resets
+    them): the seed table, the bucket starts, the query's key pack."""
+    got = {"seed_table": seed_mode.seed_table_rows.launches,
+           "bucket_starts": seed_mode.bucket_starts.launches,
+           "packed_key_words": seed_mode.packed_key_words.launches}
+    seed_mode.seed_table_rows.launches = 0
+    seed_mode.bucket_starts.launches = 0
+    seed_mode.packed_key_words.launches = 0
+    return got
+
+
 def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
-                rp: str, qp: str, out: str) -> dict:
+                rp: str, qp: str, out: str, buckets: int = 1) -> dict:
     """One default-engine CLI run on the card: count, plan, stage times,
-    peak device memory. Raises if the count is not ``want``, or unless the
+    peak device memory. Raises if the count is not ``want``, unless the
     call launched the extension kernel once and built no extension table
-    on the card (``tap``)."""
+    on the card (``tap``), or unless it launched the seed-table kernel
+    once (the CLI builds its index cold), the bucket-start kernel
+    ``buckets`` times (a table, one a slab, none for the join frontend) and
+    the key pack once (one engine call)."""
     import torch
 
+    from slamem_tpu_torch.engine import seed_mode
+
     tap.reset()
+    _table_launches(seed_mode)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -920,6 +1194,12 @@ def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
     wall = time.perf_counter() - t0
     st = _verbose_stats(stderr)
     st["extend_launches"] = tap.check(label)
+    st["table_launches"] = _table_launches(seed_mode)
+    if st["table_launches"] != {"seed_table": 1, "bucket_starts": buckets,
+                                "packed_key_words": 1}:
+        raise AssertionError(f"{label}: table kernel launches "
+                             f"{st['table_launches']}, expected 1, "
+                             f"{buckets}, 1")
     st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     st["matches"] = len(_listing_matches(out))
     st["wall_s"] = wall
@@ -933,7 +1213,8 @@ def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
          f"{stages}, host tail {st['host_tail_s']:.6f}; CLI wall "
          f"{wall:.3f} s; peak device memory {st['peak_gib']:.3f} "
          f"GiB; extension kernel launches {st['extend_launches']}, card "
-         "extension tables built 0")
+         f"extension tables built 0; table kernel launches "
+         f"{st['table_launches']}")
     if st["matches"] != want:
         raise AssertionError(f"seed {label}: {st['matches']} matches, "
                              f"expected {want}")
@@ -1181,7 +1462,8 @@ def run() -> int:
     from slamem_tpu_torch.engine import scan_mode, seed_mode
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
-    from slamem_tpu_torch.kernels import extend, rank, unpack2
+    from slamem_tpu_torch.kernels import (buckets, extend, rank, seedkeys,
+                                          unpack2)
     from slamem_tpu_torch.utils import pack2, synth
 
     tap = _ExtendTap(seed_mode)
@@ -1196,10 +1478,12 @@ def run() -> int:
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {"rank and scan kernels": pool.submit(rank.load_kernel),
                   "unpack kernel": pool.submit(unpack2.load_kernel),
-                  "extension kernel": pool.submit(extend.load_kernel)}
+                  "extension kernel": pool.submit(extend.load_kernel),
+                  "key kernels": pool.submit(seedkeys.load_kernel),
+                  "bucket kernel": pool.submit(buckets.load_kernel)}
         built = {label: f.result() for label, f in builds.items()}
     _log(f"[build] {', '.join(f'{k} {v.path.name}' for k, v in built.items())}"
          f" in {time.perf_counter() - t0:.3f} s")
@@ -1430,6 +1714,7 @@ def run() -> int:
                                   ["-l", str(HEADLINE_L)], HEADLINE_MATCHES,
                                   rp, qp, seed_out)}
         launches["extend_runs"] = seed["5a"]["extend_launches"]
+        launches.update(seed["5a"]["table_launches"])
         # the wire: the 5 Mbp reference's upload and the query's
         launches["unpack_codes"] = pack2.unpack_codes.launches
         _log(f"[seed 5a] unpack kernel launches "
@@ -1488,8 +1773,32 @@ def run() -> int:
         del strains
         seed["5d"] = _seed_phase(cli_main, tap, "5d",
                                  ["-l", str(STRAINS_L)], STRAINS_MATCHES, rp,
-                                 qp3, seed_out)
+                                 qp3, seed_out, buckets=0)
         replays = {"5d": tap.take()}   # its merged runs, for phase e
+        # t. the seed tables' kernels against their plain versions at the
+        # 5 Mbp index (5a's table and query, 5d's table, two-word keys)
+        index = build_index(ref, device="cuda")
+        plan = {lb: (int(seed[lb]["plan"]["k"]),
+                     int(seed[lb]["plan"]["stride"])) for lb in ("5a", "5d")}
+        tables = {}
+        for label, k in (("5a", plan["5a"][0]), ("5d", plan["5d"][0]),
+                         ("K=20", 20)):
+            tables[f"{label} seed table"] = _seed_table_t(seed_mode, label,
+                                                          index, k)
+            if label == "5d":      # the join frontend: no bucket table
+                continue
+            refk = seed_mode.seed_table_rows(index.text, index.sa, k)[0]
+            bbits, shift = _direct_bucket_plan(index, k)
+            tables[f"{label} bucket starts"] = _bucket_t(
+                seed_mode, label, k, bbits, shift, [(refk, 0, index.n)])
+            del refk
+        index.derived.clear()
+        tables["K=20 bucket starts"]["probes"] = seed_mode.bucket_table(
+            index, 20)[2]
+        tables["5a key pack"] = _pack_t(
+            seed_mode, "5a", seed_mode.query_to_device(qry, "cuda")[1],
+            *plan["5a"])
+        del index
         ref, qry = synth.strain_pair(CHR21["n"], seed=CHR21["seed"],
                                      sub_rate=CHR21["sub_rate"],
                                      indel_rate=CHR21["indel_rate"])
@@ -1589,7 +1898,8 @@ def run() -> int:
         shard_out = os.path.join(tmp, "shard.txt")
         chr1["6b"] = _seed_phase(
             cli_main, tap, "6b", ["-shard", "-slabs", str(CHR1_SLABS), "-l",
-                             str(CHR1_L)], CHR1_MATCHES, rp, qp, shard_out)
+                             str(CHR1_L)], CHR1_MATCHES, rp, qp, shard_out,
+            buckets=CHR1_SLABS)
         if Path(shard_out).read_bytes() != Path(seed_out).read_bytes():
             raise AssertionError("6b: -shard -slabs listing != 6a's")
         _log(f"[chr1 6b] {CHR1_SLABS}-slab listing == replicated listing")
@@ -1611,6 +1921,28 @@ def run() -> int:
             mesh_runs[label] = _mesh_phase(
                 label, fn, index, *sets, Config(min_length=CHR1_L), mesh,
                 CHR1_MATCHES, Path(seed_out).read_bytes(), smi, tap)
+        # t. at config #5's index (6a's direct table, 6b's 8 ranged slab
+        # tables) and its query's key pack
+        index.derived.clear()
+        k6, s6 = (int(chr1["6a"]["plan"][f]) for f in ("k", "stride"))
+        tables["6a seed table"] = _seed_table_t(seed_mode, "6a", index, k6)
+        refk = seed_mode.seed_table_rows(index.text, index.sa, k6)[0]
+        bbits, shift = _direct_bucket_plan(index, k6)
+        tables["6a bucket starts"] = _bucket_t(seed_mode, "6a", k6, bbits,
+                                               shift, [(refk, 0, index.n)])
+        slab, s, R, bases, _ = sharded._slab_plan(refk, index.n, k6,
+                                                  CHR1_SLABS, 3 << 30)
+        refk_p, _ = sharded._pad_rows(refk, index.sa, k6, slab * CHR1_SLABS)
+        del refk
+        tables["6b bucket starts"] = _bucket_t(
+            seed_mode, "6b", k6, R.bit_length() - 1, s,
+            [(refk_p[i * slab:(i + 1) * slab], int(bases[i]),
+              index.n - i * slab) for i in range(CHR1_SLABS)])
+        del refk_p
+        tables["6a key pack"] = _pack_t(
+            seed_mode, "6a", seed_mode.query_to_device(
+                sets[1].sequence(0).codes, "cuda")[1], k6, s6)
+        _log(f"[tables] {smi}; " + json.dumps(tables, sort_keys=True))
         del index, sets
         dist.destroy_process_group()
         _log("[mesh] " + json.dumps(mesh_runs, sort_keys=True))
@@ -1690,6 +2022,27 @@ def run() -> int:
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"],
         "library_ms": None})   # no PyTorch call extends matches
+    # the seed tables' kernels at 6a's shapes (phase t); launches: 5a's
+    for name, key, source, tpu, library in (
+            ("seed_table", "6a seed table", "seedkeys.cu",
+             "slamem_tpu/engine/seed_mode.py:308 + :64 + :485", False),
+            ("packed_key_words", "6a key pack", "seedkeys.cu",
+             "slamem_tpu/engine/seed_mode.py:64", False),
+            ("bucket_starts", "6a bucket starts", "buckets.cu",
+             "slamem_tpu/engine/seed_mode.py:355 + "
+             "slamem_tpu/dist/sharded.py:331", True)):
+        c = tables[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"slamem_tpu_torch/kernels/csrc/{source}",
+            "replaces": tpu, "launches": launches[name],
+            "max_abs_err": max(t["max_abs_err"] for lb, t in tables.items()
+                               if lb.endswith(key[3:])),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            # torch.searchsorted of the prefixes over every bucket; no
+            # PyTorch call packs K-mers
+            "library_ms": c["library_ms"] if library else None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -47,12 +47,9 @@ from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.dist.mesh import (Mesh, all_gather_ragged,
                                         all_reduce_max, all_reduce_sum)
 from slamem_tpu_torch.engine import seed_mode
-from slamem_tpu_torch.engine.seed_mode import (_I32MAX, _SA_INVALID,
-                                               SeedMatches, StageClock)
-
-# the JAX package's pad word 0 (uint32 max): pad rows clamp into each
-# slab's last bucket
-_PAD_WORD0 = (1 << 32) - 1
+from slamem_tpu_torch.engine.seed_mode import (_I32MAX, _PAD_WORD0,
+                                               _SA_INVALID, SeedMatches,
+                                               StageClock)
 
 
 def virtual_slab_tables(index, k: int, n_slabs: int,
@@ -80,15 +77,14 @@ def virtual_slab_tables(index, k: int, n_slabs: int,
     refk_p, sa_p = _pad_rows(refk, sa_aug, k, slab * n_slabs)
     dev = refk.device
     starts_st = torch.empty((n_slabs, R + 1), dtype=torch.int32, device=dev)
-    max_bucket = 0
     for i in range(n_slabs):
-        starts_st[i], mb = _slab_starts(refk_p[i * slab:(i + 1) * slab], k,
-                                        n - i * slab, int(bases_h[i]), R, s)
-        max_bucket = max(max_bucket, mb)
+        _slab_starts(refk_p[i * slab:(i + 1) * slab], k, n - i * slab,
+                     int(bases_h[i]), R, s, out=starts_st[i])
     hit = index.derived[key] = (refk_p, sa_p, starts_st,
                                 torch.from_numpy(bases_h).to(dev),
                                 torch.from_numpy(lasts_h).to(dev), s,
-                                _probes(k, s, max_bucket), slab)
+                                seed_mode.bucket_probes(k, s, starts_st),
+                                slab)
     return hit
 
 
@@ -144,22 +140,14 @@ def _slab_plan(refk: torch.Tensor, n: int, k: int, n_slabs: int,
 
 
 def _slab_starts(refk_i: torch.Tensor, k: int, real: int, base: int, R: int,
-                 shift: int) -> tuple[torch.Tensor, int]:
-    """One slab's ranged bucket starts (R + 1,) int32 and its largest
-    bucket, by histogram + cumsum (_build_bucket_table) over the slab's
-    prefixes less its base; rows from ``real`` on are pads and take the pad
-    word 0, which clamps into the last bucket."""
-    base <<= shift
-    rel = seed_mode._key_word0(refk_i, k) - base
-    rel[max(0, min(int(refk_i.shape[0]), real)):] = _PAD_WORD0 - base
-    return seed_mode._build_bucket_table(rel, R.bit_length() - 1, shift)
-
-
-def _probes(k: int, shift: int, max_bucket: int) -> int:
-    """Refinement probes of the slab frontend (0: direct addressing)."""
-    if k <= 16 and shift == 0:
-        return 0
-    return max(1, int(np.ceil(np.log2(max(max_bucket, 2)))) + 1)
+                 shift: int, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """One slab's ranged bucket starts (R + 1,) int32 (seed_mode.
+    bucket_starts over the slab's rows less its base); rows from ``real``
+    on are pads and take the pad word 0, which clamps into the last
+    bucket."""
+    return seed_mode.bucket_starts(refk_i, k, R.bit_length() - 1, shift,
+                                   base, real, out)
 
 
 def virtual_frontend(refk_p: torch.Tensor, starts_st: torch.Tensor,
@@ -403,15 +391,17 @@ def mesh_slab_tables(index, k: int, mesh: Mesh,
                                               max_table_bytes)
     rows = slice(min(i * slab, n), min((i + 1) * slab, n))
     refk_i, sa_i = _pad_rows(refk[rows], sa_aug[rows], k, slab)
-    starts_i, max_bucket = _slab_starts(refk_i, k, n - i * slab,
-                                        int(bases_h[i]), R, s)
+    starts_i = _slab_starts(refk_i, k, n - i * slab, int(bases_h[i]), R, s)
     dev = refk.device
-    max_bucket = int(all_reduce_max(mesh, torch.tensor(
-        max_bucket, dtype=torch.int64, device=dev)))
+    # the probe count grows with the largest bucket, so the largest count
+    # over the ranks is the count of the ranks' largest bucket
+    probes = int(all_reduce_max(mesh, torch.tensor(
+        seed_mode.bucket_probes(k, s, starts_i), dtype=torch.int64,
+        device=dev)))
     hit = index.derived[key] = (refk_i, sa_i, starts_i,
                                 torch.from_numpy(bases_h).to(dev),
                                 torch.from_numpy(lasts_h).to(dev), s,
-                                _probes(k, s, max_bucket), slab)
+                                probes, slab)
     return hit
 
 

@@ -60,13 +60,18 @@ import torch
 
 from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.io.fasta import CODE_N
+from slamem_tpu_torch.kernels.buckets import load_kernel as load_buckets
 from slamem_tpu_torch.kernels.extend import load_kernel as load_extend
 from slamem_tpu_torch.kernels.rank import popcount32
+from slamem_tpu_torch.kernels.seedkeys import load_kernel as load_seedkeys
 from slamem_tpu_torch.utils.device import synchronize
 from slamem_tpu_torch.utils.pack2 import codes_to_device
 
 _I32MAX = int(np.iinfo(np.int32).max)
 _SA_INVALID = -(1 << 31)          # sign bit of an int32 sa_aug row
+# the JAX package's pad word 0 (uint32 max): pad rows of a slab clamp into
+# its last bucket
+_PAD_WORD0 = (1 << 32) - 1
 
 
 class StageClock:
@@ -92,8 +97,8 @@ class StageClock:
 # K-mer packing
 # ---------------------------------------------------------------------------
 
-def packed_key_words(text: torch.Tensor, k: int, stride: int = 1
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def packed_key_words_plain(text: torch.Tensor, k: int, stride: int = 1
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """(keys, valid) at every stride-th position of a code text, K <= 32.
 
     keys[i] (int64, the layout in the module docstring) packs the window
@@ -104,9 +109,11 @@ def packed_key_words(text: torch.Tensor, k: int, stride: int = 1
     keeps the SA-ordered reference table non-decreasing (specials sort
     below A in the index's suffix order); see seed_table.
 
-    Every frontend samples the query through this function at its stride
-    (the JAX package's sampled_query_keys): choose_stride's exactness
-    argument depends on the windows being exactly positions 0, S, 2S, ...
+    Every frontend samples the query through packed_key_words at its
+    stride (the JAX package's sampled_query_keys): choose_stride's
+    exactness argument depends on the windows being exactly positions 0,
+    S, 2S, ... The plain version of packed_key_words (its route for CPU
+    tensors) and of seed_table_rows' packing.
     """
     dev = text.device
     n = int(text.shape[0])
@@ -131,6 +138,62 @@ def packed_key_words(text: torch.Tensor, k: int, stride: int = 1
     return (words[0] - (1 << 31)) * (1 << 32) + words[1], ok
 
 
+def _check_1d(name: str, t: torch.Tensor, dtype: torch.dtype,
+              device: torch.device) -> None:
+    """Argument check of a kernel wrapper from shape, dtype and device."""
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a 1-D contiguous {dtype} tensor, "
+                         f"got {tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= 32:
+        raise ValueError(f"k must lie in [1, 32], got {k}")
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def packed_key_words(text: torch.Tensor, k: int, stride: int = 1
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(keys int64, valid bool) of the windows at positions 0, stride, 2
+    stride, ... of a uint8 code text: packed_key_words_plain's arrays.
+
+    CUDA tensors launch ``slamem_pack_keys`` of ``kernels/csrc/
+    seedkeys.cu`` on the current stream (one thread per window, which
+    reads its own window), without synchronising, and count the launch in
+    ``packed_key_words.launches``; an empty text launches nothing. CPU
+    tensors take packed_key_words_plain.
+    """
+    _check_1d("text", text, torch.uint8, text.device)
+    _check_k(k)
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if text.device.type == "cpu":
+        return packed_key_words_plain(text, k, stride)
+    n = text.numel()
+    ns = -(-n // stride)
+    keys = torch.empty(ns, dtype=torch.int64, device=text.device)
+    valid = torch.empty(ns, dtype=torch.bool, device=text.device)
+    if ns == 0:
+        return keys, valid
+    fn = load_seedkeys().pack_keys
+    with torch.cuda.device(text.device):
+        stream = torch.cuda.current_stream(text.device).cuda_stream
+        err = fn(text.data_ptr(), n, int(stride), int(k), keys.data_ptr(),
+                 valid.data_ptr(), stream)
+    _launched(err, "key pack")
+    packed_key_words.launches += 1
+    return keys, valid
+
+
+packed_key_words.launches = 0
+
+
 def _key_word0(keys: torch.Tensor, k: int) -> torch.Tensor:
     """Word 0 of the JAX package's layout (characters [0, 16) base 4,
     non-negative, < 2^32) from the port's keys: the bucket prefix source."""
@@ -147,21 +210,63 @@ def augment_sa(sa: torch.Tensor, rowvalid: torch.Tensor) -> torch.Tensor:
     return torch.where(rowvalid, sa, sa | _SA_INVALID)
 
 
+def seed_table_rows_plain(text: torch.Tensor, sa: torch.Tensor, k: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """seed_table_rows by torch ops: the packed keys of every text
+    position, gathered in SA order with their validity (augment_sa)."""
+    keys, valid = packed_key_words_plain(text, k)
+    sa64 = sa.to(torch.int64)
+    return keys[sa64], augment_sa(sa, valid[sa64])
+
+
+def seed_table_rows(text: torch.Tensor, sa: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(refk int64, sa_aug int32): the packed K-mer of the window [sa[i],
+    sa[i] + k) of every SA row i, and sa[i] with the sign bit set where
+    that window is invalid (seed_table_rows_plain's arrays).
+
+    CUDA tensors launch ``slamem_seed_table`` of ``kernels/csrc/
+    seedkeys.cu`` on the current stream (one thread per row, which reads
+    its row's window; no text-order key array, no gather), without
+    synchronising, and count the launch in ``seed_table_rows.launches``;
+    zero rows launch nothing. CPU tensors take seed_table_rows_plain.
+    """
+    _check_1d("text", text, torch.uint8, text.device)
+    _check_1d("sa", sa, torch.int32, text.device)
+    _check_k(k)
+    if text.device.type == "cpu":
+        return seed_table_rows_plain(text, sa, k)
+    rows = sa.numel()
+    refk = torch.empty(rows, dtype=torch.int64, device=sa.device)
+    sa_aug = torch.empty_like(sa)
+    if rows == 0:
+        return refk, sa_aug
+    fn = load_seedkeys().seed_table
+    with torch.cuda.device(sa.device):
+        stream = torch.cuda.current_stream(sa.device).cuda_stream
+        err = fn(text.data_ptr(), text.numel(), sa.data_ptr(), rows, int(k),
+                 refk.data_ptr(), sa_aug.data_ptr(), stream)
+    _launched(err, "seed table")
+    seed_table_rows.launches += 1
+    return refk, sa_aug
+
+
+seed_table_rows.launches = 0
+
+
 def seed_table(index, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(refk, sa_aug): packed reference K-mers in SA order + sign-augmented SA.
 
-    refk (int64) is non-decreasing (argued in packed_key_words), so sorted
-    search against it yields the SA interval of any ACGT K-mer. Rows whose
-    window touches a special carry the sign-bit invalid flag in sa_aug and
-    are dropped at pair expansion. Built once per (index, k) and kept in
-    ``index.derived``.
+    refk (int64) is non-decreasing (argued in packed_key_words_plain), so
+    sorted search against it yields the SA interval of any ACGT K-mer.
+    Rows whose window touches a special carry the sign-bit invalid flag in
+    sa_aug and are dropped at pair expansion. Built once per (index, k) by
+    seed_table_rows and kept in ``index.derived``.
     """
     key = ("seed_table", k)
     hit = index.derived.get(key)
     if hit is None:
-        keys, valid = packed_key_words(index.text, k)
-        sa = index.sa.to(torch.int64)
-        hit = index.derived[key] = (keys[sa], augment_sa(index.sa, valid[sa]))
+        hit = index.derived[key] = seed_table_rows(index.text, index.sa, k)
     return hit
 
 
@@ -193,13 +298,82 @@ def _build_bucket_table(refk0: torch.Tensor, bbits: int, shift: int
     int64 indices and ran at about 3 ns per element on an H100 (PERF.md),
     most of a second for the 2^28-entry table at K = 14. Prefixes are
     clamped to the top bucket as in the JAX package. Returns (starts
-    (nb + 1,) int32, largest bucket).
+    (nb + 1,) int32, largest bucket). The core of bucket_starts_plain.
     """
     nb = 1 << bbits
     pref = (refk0 >> shift).clamp(max=nb - 1)
     counts = torch.zeros(nb + 1, dtype=torch.int32, device=refk0.device)
     counts.index_add_(0, pref + 1, torch.ones_like(pref, dtype=torch.int32))
     return torch.cumsum(counts, 0, dtype=torch.int32), int(counts.max())
+
+
+def bucket_starts_plain(refk: torch.Tensor, k: int, bbits: int, shift: int,
+                        base: int = 0, real: int | None = None
+                        ) -> torch.Tensor:
+    """bucket_starts by torch ops: the rows' word-0 prefixes less the
+    slab's base, pads from ``real`` on, then _build_bucket_table."""
+    base <<= shift
+    rel = _key_word0(refk, k) - base
+    rows = int(refk.shape[0])
+    rel[max(0, min(rows, rows if real is None else real)):] = \
+        _PAD_WORD0 - base
+    return _build_bucket_table(rel, bbits, shift)[0]
+
+
+def bucket_starts(refk: torch.Tensor, k: int, bbits: int, shift: int,
+                  base: int = 0, real: int | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """(2^bbits + 1,) int32 bucket starts of a sorted key table: starts[b]
+    = the first row whose prefix min((word0 - (base << shift)) >> shift,
+    2^bbits - 1) is >= b (the row count if none). Rows from ``real`` on
+    (None: none) are pads and take the pad word 0 (2^32 - 1), which clamps
+    into the last bucket. base = 0 and real = None give the direct and
+    shifted tables of bucket_table; a slab's first prefix and its real row
+    count give its ranged table (dist/sharded.py). Written into ``out``
+    when given.
+
+    CUDA tensors launch ``slamem_bucket_starts`` of ``kernels/csrc/
+    buckets.cu`` on the current stream (the boundary fill: every entry
+    written once, no atomics, no histogram, no scan), without
+    synchronising, and count the launch in ``bucket_starts.launches``; the
+    table always has entries, so every call launches. CPU tensors take
+    bucket_starts_plain.
+    """
+    _check_1d("refk", refk, torch.int64, refk.device)
+    _check_k(k)
+    nb = 1 << bbits
+    if out is not None:
+        _check_1d("out", out, torch.int32, refk.device)
+        if out.numel() != nb + 1:
+            raise ValueError(f"out has {out.numel()} entries, the table "
+                             f"{nb + 1}")
+    if refk.device.type == "cpu":
+        starts = bucket_starts_plain(refk, k, bbits, shift, base, real)
+        return starts if out is None else out.copy_(starts)
+    starts = out if out is not None else torch.empty(
+        nb + 1, dtype=torch.int32, device=refk.device)
+    rows = refk.numel()
+    fn = load_buckets().fn
+    with torch.cuda.device(refk.device):
+        stream = torch.cuda.current_stream(refk.device).cuda_stream
+        err = fn(refk.data_ptr(), rows, rows if real is None else int(real),
+                 int(k), int(base), int(shift), nb, starts.data_ptr(), stream)
+    _launched(err, "bucket start")
+    bucket_starts.launches += 1
+    return starts
+
+
+bucket_starts.launches = 0
+
+
+def bucket_probes(k: int, shift: int, starts: torch.Tensor) -> int:
+    """Refinement probes of a bucket table (0: a bucket is a single key,
+    direct addressing), from its largest bucket (over every row of a
+    (slabs, R + 1) table); reads the largest bucket only when probing."""
+    if k <= 16 and shift == 0:   # a bucket of full keys needs no refinement
+        return 0
+    largest = int((starts[..., 1:] - starts[..., :-1]).max())
+    return max(1, int(np.ceil(np.log2(max(largest, 2)))) + 1)
 
 
 def bucket_table(index, k: int) -> tuple[torch.Tensor, int, int]:
@@ -222,13 +396,9 @@ def bucket_table(index, k: int) -> tuple[torch.Tensor, int, int]:
     else:
         bbits = min(word0_bits, 24)
         shift = word0_bits - bbits
-    starts, max_bucket = _build_bucket_table(_key_word0(refk, k), bbits,
-                                             shift)
-    if k <= 16 and shift == 0:   # a bucket of full keys needs no refinement
-        probes = 0
-    else:
-        probes = max(1, int(np.ceil(np.log2(max(max_bucket, 2)))) + 1)
-    hit = index.derived[key] = (starts, shift, probes)
+    starts = bucket_starts(refk, k, bbits, shift)
+    hit = index.derived[key] = (starts, shift,
+                                bucket_probes(k, shift, starts))
     return hit
 
 
@@ -554,14 +724,9 @@ def _check_extend(runs: tuple[torch.Tensor, ...],
                   texts: tuple[torch.Tensor, ...]) -> None:
     """Argument check of ``extend_runs`` from shapes, dtypes and devices
     alone (no read of the data)."""
-    for name, t, dtype in (*(("run", r, torch.int64) for r in runs),
-                           *(("text", t, torch.uint8) for t in texts)):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} arrays must be 1-D contiguous {dtype}, "
-                             f"got {tuple(t.shape)} {t.dtype}")
-        if t.device != runs[0].device:
-            raise ValueError(f"a {name} array is on {t.device}, the runs on "
-                             f"{runs[0].device}")
+    for name, t, dtype in (*(("a run array", r, torch.int64) for r in runs),
+                           *(("a text", t, torch.uint8) for t in texts)):
+        _check_1d(name, t, dtype, runs[0].device)
     if not runs[0].shape == runs[1].shape == runs[2].shape:
         raise ValueError("diag, qs_s and qe_s differ in shape")
 
@@ -598,8 +763,7 @@ def extend_runs(diag: torch.Tensor, qs_s: torch.Tensor, qe_s: torch.Tensor,
                  diag.numel(), ref_text.data_ptr(), ref_text.numel(),
                  q_text.data_ptr(), q_text.numel(), int(stride), int(k),
                  qstart.data_ptr(), qend.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"extension kernel launch failed: CUDA error {err}")
+    _launched(err, "extension")
     extend_runs.launches += 1
     return qstart, qend
 

@@ -1,7 +1,9 @@
 """Port on the card: the CUDA rank kernels (K0 and the nibble kernel), the
 scan kernel (``scan_lanes``, both table layouts), the 2-bit unpack kernel
 of the upload wire (``unpack_codes``), the seed engine's endpoint-extension
-kernel (``extend_runs``), the scan, seed (sort and boundary backends) and
+kernel (``extend_runs``), the seed tables' key and bucket-start kernels
+(``seed_table_rows``, ``packed_key_words``, ``bucket_starts``), the scan,
+seed (sort and boundary backends) and
 virtual-slab engines on a CUDA device, and the mesh branches over a
 one-rank NCCL group, against their plain versions / CPU runs / the
 single-device engine on the same inputs.
@@ -485,6 +487,194 @@ def test_sparse_call_launches_extension_once(cuda, fields):
     find_seed_matches(idx, qry, Config(min_length=20, sparse_seeds="off"))
     assert seed_mode.extend_runs.launches == before + 1
     assert "ext_table" not in idx.derived
+
+
+def _table_text(n: int, seed: int) -> np.ndarray:
+    """Codes with N runs, separators (one at the end) and an all-T
+    stretch before the end: windows at N, SEP and the text's end."""
+    t = with_n_runs(random_genome(n, seed=seed), 3, 40, seed=seed + 1)
+    t[[n // 7, n // 3, n // 3 + 1, n - 1]] = CODE_SEP
+    t[n - 40:n - 1] = 3
+    return t
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_key_kernels_equal_plain(cuda, k):
+    """The seed-table and key-pack kernels (csrc/seedkeys.cu) == their
+    plain versions on the card and == the CPU route, at every K, strides
+    1, 8, 14 and 16, the text also as a view at byte offsets 0..15; one
+    launch each; zero rows launch nothing."""
+    text = _table_text(60_001, 200)
+    idx = build_index(text, device=cuda)
+    want = seed_mode.seed_table_rows_plain(idx.text, idx.sa, k)
+    cpu = seed_mode.seed_table_rows(idx.text.cpu(), idx.sa.cpu(), k)
+    assert bool((~want[1] >> 31).any()) and bool((want[1] >> 31).any())
+    packs = {s: seed_mode.packed_key_words_plain(idx.text, k, s)
+             for s in (1, 8, 14, 16)}
+    for r in range(16):
+        view = _offset_view(idx.text, r)
+        before = seed_mode.seed_table_rows.launches
+        got = seed_mode.seed_table_rows(view, idx.sa, k)
+        torch.cuda.synchronize()
+        assert seed_mode.seed_table_rows.launches == before + 1
+        assert got[0].dtype == torch.int64 and got[1].dtype == torch.int32
+        for g, w, c in zip(got, want, cpu):
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c), r
+        for s, (wk, wv) in packs.items():
+            before = seed_mode.packed_key_words.launches
+            gk, gv = seed_mode.packed_key_words(view, k, s)
+            torch.cuda.synchronize()
+            assert seed_mode.packed_key_words.launches == before + 1
+            assert torch.equal(gk, wk) and torch.equal(gv, wv), (r, s)
+    before = (seed_mode.seed_table_rows.launches,
+              seed_mode.packed_key_words.launches)
+    empty = seed_mode.seed_table_rows(idx.text, idx.sa[:0], k)
+    assert all(e.numel() == 0 for e in empty)
+    empty = seed_mode.packed_key_words(idx.text[:0], k, 8)
+    assert all(e.numel() == 0 for e in empty)
+    assert (seed_mode.seed_table_rows.launches,
+            seed_mode.packed_key_words.launches) == before
+
+
+def _bucket_case(w0: np.ndarray, k: int, seed: int) -> torch.Tensor:
+    """Sorted int64 keys whose word 0 is w0 (sorted), the lower
+    characters (k > 16) random."""
+    if k <= 16:
+        return torch.from_numpy(w0.astype(np.int64))
+    rng = np.random.default_rng(seed)
+    w1 = np.sort(rng.integers(0, 4 ** (k - 16), w0.size, dtype=np.uint64))
+    w0 = w0.astype(np.uint64)
+    if k < 32:
+        key = w0 * np.uint64(4 ** (k - 16)) + w1
+    else:
+        key = ((w0 << np.uint64(32)) | w1) ^ np.uint64(1 << 63)
+    return torch.from_numpy(key.view(np.int64))
+
+
+def _bucket_cases():
+    rng = np.random.default_rng(201)
+    gaps = np.sort(np.concatenate([rng.integers(0, 40, 50),
+                                   rng.integers(20_000, 20_100, 300),
+                                   rng.integers(3 << 20, (3 << 20) + 9, 80)]))
+    return {
+        "both ends empty": (8, 16, 0, np.sort(rng.integers(3 << 12, 5 << 12,
+                                                           700))),
+        "long gaps": (11, 22, 0, gaps),
+        "one bucket": (8, 16, 0, np.full(500, 12_345)),
+        "one bucket, shift": (14, 12, 8, np.full(400, 1_000_000)),
+        "shift, clamped": (14, 16, 8, np.sort(rng.integers(0, 1 << 28,
+                                                          200_000))),
+        "two words": (20, 24, 8, np.sort(rng.integers(1 << 20, 1 << 31,
+                                                      300_000))),
+        "K = 32": (32, 20, 12, np.sort(rng.integers(0, 1 << 32, 300_000,
+                                                    dtype=np.uint64))),
+        "no rows": (8, 10, 0, np.zeros(0, np.int64)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bucket_cases()))
+def test_bucket_kernel_equals_plain(cuda, case):
+    """The bucket-start kernel (csrc/buckets.cu) == its plain version on
+    the card and the CPU route: empty buckets at both ends, gaps wider than
+    a warp, one bucket holding every row, shifts, clamps, two-word keys, no
+    rows; with slab bases and pads (every real-row count); one launch
+    each; the largest bucket equal."""
+    k, bbits, shift, w0 = _bucket_cases()[case]
+    refk = _bucket_case(w0, k, 202).to(cuda)
+    n = refk.numel()
+    for base, real in ((0, None), (int(w0[0]) >> shift if n else 0, n // 2),
+                       (0, 0), (0, n + 5)):
+        want = seed_mode.bucket_starts_plain(refk, k, bbits, shift, base,
+                                             real)
+        before = seed_mode.bucket_starts.launches
+        got = seed_mode.bucket_starts(refk, k, bbits, shift, base, real)
+        torch.cuda.synchronize()
+        assert seed_mode.bucket_starts.launches == before + 1
+        assert got.dtype == torch.int32 and got.numel() == (1 << bbits) + 1
+        assert torch.equal(got, want), (base, real)
+        assert torch.equal(got.cpu(), seed_mode.bucket_starts(
+            refk.cpu(), k, bbits, shift, base, real))
+        assert seed_mode.bucket_probes(k, 1, got) == seed_mode.bucket_probes(
+            k, 1, want)
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_bucket_tables_equal_plain(cuda, k):
+    """At every K, bucket_table's and the slab tables' parameters on a
+    real index: kernel == plain, the largest bucket equal."""
+    idx = build_index(_table_text(60_001, 203), device=cuda)
+    refk, _ = seed_mode.seed_table(idx, k)
+    word0_bits = 2 * min(k, 16)
+    bbits = min(word0_bits, 22)
+    for shift in sorted({word0_bits - bbits, max(0, word0_bits - 16)}):
+        got = seed_mode.bucket_starts(refk, k, bbits, shift)
+        want = seed_mode._build_bucket_table(seed_mode._key_word0(refk, k),
+                                             bbits, shift)
+        assert torch.equal(got, want[0]), shift
+        assert int((got[1:] - got[:-1]).max()) == want[1]
+    slab, shift = -(-idx.n // 8), max(0, word0_bits - 16)
+    for i in range(8):
+        rows = refk[i * slab:(i + 1) * slab]
+        base = int(seed_mode._key_word0(rows[:1], k)) >> shift
+        got = seed_mode.bucket_starts(rows, k, 16, shift, base,
+                                      idx.n - i * slab)
+        want = seed_mode.bucket_starts_plain(rows, k, 16, shift, base,
+                                             idx.n - i * slab)
+        assert torch.equal(got, want), i
+
+
+def test_table_kernels_on_cuda_never_take_the_plain_path(cuda, monkeypatch):
+    """With every plain table function made to fail, card queries still
+    run: a default call (its plan builds the bucket table), a join call on
+    the cached tables and the 3-slab program; each table kernel launched
+    once per table built, the key pack once per call."""
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain table path ran on CUDA tensors")
+
+    ref = with_n_runs(random_genome(200_000, seed=204), 3, 40, seed=205)
+    qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=206), 2, 30, seed=207)
+    want = find_seed_matches(build_index(ref, device="cpu"), qry,
+                             Config(min_length=20))
+    for name in ("packed_key_words_plain", "seed_table_rows_plain",
+                 "bucket_starts_plain", "_build_bucket_table"):
+        monkeypatch.setattr(seed_mode, name, plain)
+    idx = build_index(ref, device=cuda)
+    counts = (seed_mode.seed_table_rows, seed_mode.bucket_starts,
+              seed_mode.packed_key_words)
+    before = [f.launches for f in counts]
+    got = find_seed_matches(idx, qry, Config(min_length=20))
+    assert [f.launches - b for f, b in zip(counts, before)] == [1, 1, 1]
+    assert _tuples(got) == _tuples(want)
+    find_seed_matches(idx, qry, Config(min_length=20, frontend="join"))
+    assert [f.launches - b for f, b in zip(counts, before)] == [1, 1, 2]
+    find_seed_matches_sharded(idx, qry, Config(min_length=20), n_slabs=3)
+    assert [f.launches - b for f, b in zip(counts, before)] == [1, 4, 3]
+
+
+def test_failed_table_kernel_build_raises(cuda, monkeypatch, tmp_path):
+    """A source nvcc refuses raises on CUDA tensors, with the compiler's
+    message; nothing falls back to the plain versions."""
+    from slamem_tpu_torch.kernels import buckets, seedkeys
+
+    broken = tmp_path / "broken.cu"
+    broken.write_text("extern \"C\" int f() { return not_declared; }\n")
+    text = torch.zeros(100, dtype=torch.uint8, device=cuda)
+    sa = torch.arange(100, dtype=torch.int32, device=cuda)
+    calls = {seedkeys: [lambda: seed_mode.seed_table_rows(text, sa, 8),
+                        lambda: seed_mode.packed_key_words(text, 8, 2)],
+             buckets: [lambda: seed_mode.bucket_starts(sa.to(torch.int64), 8,
+                                                       16, 0)]}
+    try:
+        for module, fns in calls.items():
+            monkeypatch.setattr(module, "_SOURCE", broken)
+            module.load_kernel.cache_clear()
+            for fn in fns:
+                with pytest.raises(RuntimeError, match="not_declared"):
+                    fn()
+    finally:
+        monkeypatch.undo()
+        seedkeys.load_kernel.cache_clear()
+        buckets.load_kernel.cache_clear()
 
 
 def test_cli_save_load_on_cuda(cuda, tmp_path):
