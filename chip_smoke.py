@@ -93,19 +93,24 @@ Phases, each of which raises on failure (exit status non-zero):
      once (5a-5c, 6a, 9a), never (5d, the join frontend) or once a slab
      (6b: 8);
      t. the seed tables' kernels against their plain versions on the card,
-        exact, timed by CUDA events (raw launch, wrapper, plain), each with
-        its bound: at the 5 Mbp index after 5d the seed table at 5a's K
-        (13) and 5d's (14), 5a's direct bucket table (2^26 + 1 entries)
+        exact, timed by CUDA events (raw launches, wrapper, plain), each
+        with its bound: at the 5 Mbp index after 5d the seed table at 5a's
+        K (13) and 5d's (14), 5a's direct bucket table (2^26 + 1 entries)
         and 5a's query's key pack (K 13, stride 8), and two-word keys (K =
         20: seed table, bucket table with shift 8 and probes); at config
-        #5's index after 9b the seed table (K 14; plus its sector bound),
-        6a's direct bucket table (2^28 + 1), 6b's 8 ranged slab tables (R =
-        2^26) and 6a's query's key pack (K 14, stride 14). The bucket
-        tables also against torch.searchsorted of the rows' prefixes over
-        every bucket (equal, timed: the library yardstick) and, for one
-        table, the old cold path (_build_bucket_table over _key_word0):
-        with the plain seed table, the split of the old ``tables`` stage;
-        each also logs its largest bucket and its widest gaps;
+        #5's index after 9b the seed table (K 14), 6a's direct bucket
+        table (2^28 + 1), 6b's 8 ranged slab tables (R = 2^26) and 6a's
+        query's key pack (K 14, stride 14). Each seed table also times its
+        plane pass and its gather alone and counts the rows sent to the
+        exact path and the 32-byte sectors under the windows in the text
+        and in the plane (its sector bounds). The bucket tables also
+        against torch.searchsorted of the rows' prefixes over every bucket
+        (equal, timed: the library yardstick), beside a streaming
+        yardstick of the same bytes (a sum over the keys and a fill of
+        the table) and, for one table, the old cold path
+        (_build_bucket_table over _key_word0): with the plain seed table,
+        the split of the old ``tables`` stage; each also logs its largest
+        bucket and its widest gaps;
   7. the boundary match backend (``Config(match_backend="boundary")``,
      dense seeding at stride 1) through run_engine on the card:
      7a. the headline pair at ``-l 20``: 59,101, bytes == 5a's listing;
@@ -892,12 +897,20 @@ def _bound(bound_bytes: int, bound_ops: int) -> dict:
 
 def _seed_table_t(seed_mode, label: str, index, k: int) -> dict:
     """Phase t, the seed table of one index at one K: seed_table_rows'
-    kernel against seed_table_rows_plain on the card, exact (refk and
-    sa_aug); times by CUDA events of the raw launch, the wrapper and the
-    plain version (the old cold path: a key per text position, then two
-    gathers). Bound: bytes = 16 per row (sa in, refk and sa_aug out) + the
-    text once; operations = 2 K per row; sector bound = 16 B per row + the
-    32-byte sectors under each row's window."""
+    two kernels (the plane pass and the gather) against
+    seed_table_rows_plain on the card, exact (refk and sa_aug); times by
+    CUDA events of the raw launches (the pair, and each alone), the
+    wrapper and the plain version (the old cold path: a key per text
+    position, then two gathers). Counts: the invalid rows, the rows the
+    gather sends to the exact path (a flag set on a word under the window,
+    or the window past the text), the 32-byte sectors under each row's
+    window in the uint8 text (what PR 10's one-launch design read) and in
+    the plane (what the gather reads: a 16-byte pair of words a row, and
+    the next word alone where the window reaches past the pair). Bound:
+    bytes = 16 per row (sa in, refk and sa_aug out) + the text once;
+    operations = 2 K per row; sector bound = 16 B a row + the text
+    sectors; plane sector bound = 16 B a row + the plane sectors + the
+    plane pass's bytes (the gather with no plane read served by L2)."""
     import torch
 
     from slamem_tpu_torch.kernels.seedkeys import load_kernel
@@ -910,36 +923,72 @@ def _seed_table_t(seed_mode, label: str, index, k: int) -> dict:
     err = _exact(f"t {label} seed table", got, want)
     del want
     refk, sa_aug = got
-    fn = load_kernel().seed_table
+    kern = load_kernel()
     stream = torch.cuda.current_stream().cuda_stream
+    words = -(-n // 31)
+    plane = torch.empty(words + (words & 1), dtype=torch.int64,
+                        device=text.device)
+
+    def plane_pass():
+        if kern.seed_plane(text.data_ptr(), n, plane.data_ptr(), stream):
+            raise RuntimeError("seed plane kernel launch failed")
+
+    def gather():
+        if kern.seed_gather(text.data_ptr(), n, plane.data_ptr(),
+                            sa.data_ptr(), rows, k, refk.data_ptr(),
+                            sa_aug.data_ptr(), stream):
+            raise RuntimeError("seed gather kernel launch failed")
 
     def raw():
-        if fn(text.data_ptr(), n, sa.data_ptr(), rows, k, refk.data_ptr(),
-              sa_aug.data_ptr(), stream):
-            raise RuntimeError("seed table kernel launch failed")
+        plane_pass()
+        gather()
 
     big = rows > 10 ** 8
     ms = _cuda_ms(raw, 5 if big else 50)
+    plane_ms = _cuda_ms(plane_pass, 5 if big else 50)
+    gather_ms = _cuda_ms(gather, 5 if big else 50)
     wrapper_ms = _cuda_ms(lambda: seed_mode.seed_table_rows(text, sa, k),
                           5 if big else 20)
     plain_ms = _cuda_ms(lambda: seed_mode.seed_table_rows_plain(text, sa, k),
                         2 if big else 5)
+    plane_pass()
     a = sa.to(torch.int64)
     sectors = int(_window_sectors(text, a, k).sum())
+    # the gather's loads: the pair holding word w (its sector w // 4), and
+    # word w + 1 alone when w is odd and the window reaches it
+    inside = a + k <= n
+    w = a // 31
+    two = a - 31 * w + k > 31
     del a
+    flag = (plane & 1).bool()
+    exact = int((~inside | flag[w] | (two & flag[(w + 1).clamp(
+        max=words - 1)])).sum())
+    alone = inside & two & (w & 1).bool()
+    plane_sectors = int(inside.sum()) + int(
+        (alone & ((w + 1) >> 2 != w >> 2)).sum())
+    del inside, w, two, flag, alone, plane
+    pass_bytes = n + 8 * words
     res = {"rows": rows, "k": k, "invalid_rows": int((sa_aug < 0).sum()),
-           "sectors": sectors, "ms": ms, "wrapper_ms": wrapper_ms,
+           "exact_rows": exact, "sectors": sectors,
+           "plane_sectors": plane_sectors, "ms": ms, "plane_ms": plane_ms,
+           "gather_ms": gather_ms, "wrapper_ms": wrapper_ms,
            "plain_ms": plain_ms, "max_abs_err": err,
            **_bound(16 * rows + n, 2 * k * rows),
            "sector_bound_ms": (16 * rows + 32 * sectors) / HBM_BYTES_PER_S
-           * 1e3}
+           * 1e3,
+           "plane_sector_bound_ms": (16 * rows + 32 * plane_sectors
+                                     + pass_bytes) / HBM_BYTES_PER_S * 1e3}
     _log(f"[tables t] {label} seed table: {rows} rows, K={k} "
-         f"({res['invalid_rows']} invalid): kernel == plain; kernel "
-         f"{ms:.6f} ms (wrapper {wrapper_ms:.6f} ms), plain {plain_ms:.6f} "
-         f"ms; bound {res['bound_ms']:.6f} ms ({res['bound_by']}: "
-         f"{res['bound_bytes']} B, {res['bound_ops']} ops); sector bound "
-         f"{res['sector_bound_ms']:.6f} ms ({sectors} sectors, "
-         f"{sectors / max(rows, 1):.3f} a row)")
+         f"({res['invalid_rows']} invalid, {exact} on the exact path): "
+         f"kernels == plain; plane pass + gather {ms:.6f} ms (plane "
+         f"{plane_ms:.6f} ms, gather {gather_ms:.6f} ms; wrapper "
+         f"{wrapper_ms:.6f} ms), plain {plain_ms:.6f} ms; bound "
+         f"{res['bound_ms']:.6f} ms ({res['bound_by']}: "
+         f"{res['bound_bytes']} B, {res['bound_ops']} ops); text sector "
+         f"bound {res['sector_bound_ms']:.6f} ms ({sectors} sectors, "
+         f"{sectors / max(rows, 1):.3f} a row); plane sector bound "
+         f"{res['plane_sector_bound_ms']:.6f} ms ({plane_sectors} sectors, "
+         f"{plane_sectors / max(rows, 1):.3f} a row)")
     return res
 
 
@@ -956,8 +1005,10 @@ def _bucket_t(seed_mode, label: str, k: int, bbits: int, shift: int,
     host read included). The prefixes' gaps: the widest one a boundary
     thread meets (its warp's when it is more than 32 entries), those
     wider than 32, and the grid's (below the first row, above the last).
-    Bound: bytes = 8 per real row read + 4 per entry written; operations
-    = 4 per row + 1 per entry."""
+    The streaming yardstick: the same bytes through two PyTorch calls a
+    table, a sum over the real rows' keys (8 B a row read) and a fill of
+    the table (4 B an entry written). Bound: bytes = 8 per real row read +
+    4 per entry written; operations = 4 per row + 1 per entry."""
     import torch
 
     from slamem_tpu_torch.kernels.buckets import load_kernel
@@ -1017,11 +1068,17 @@ def _bucket_t(seed_mode, label: str, k: int, bbits: int, shift: int,
         for pref in prefs:
             torch.searchsorted(pref, ar, side="left")
 
+    def yardstick():
+        for (rows, _, real), out in zip(slabs, outs):
+            rows[:max(0, min(rows.numel(), real))].sum()
+            out.fill_(0)
+
     big = nb * len(slabs) > 1 << 27
     ms = _cuda_ms(raw, 5 if big else 50)
     wrapper_ms = _cuda_ms(wrapper, 5 if big else 20)
     plain_ms = _cuda_ms(plain, 2 if big else 5)
     library_ms = _cuda_ms(library, 2 if big else 5)
+    yard_ms = _cuda_ms(yardstick, 5 if big else 50)
     old_ms = None
     if len(slabs) == 1 and slabs[0][1] == 0:
         w0 = seed_mode._key_word0(slabs[0][0], k)
@@ -1038,7 +1095,7 @@ def _bucket_t(seed_mode, label: str, k: int, bbits: int, shift: int,
            "widest_boundary_gap": widest, "gaps_over_32": wide,
            "widest_grid_gap": grid_gap, "ms": ms, "wrapper_ms": wrapper_ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "old_ms": old_ms,
-           "max_abs_err": err,
+           "yardstick_ms": yard_ms, "max_abs_err": err,
            **_bound(8 * real_rows + 4 * entries, 4 * real_rows + entries)}
     _log(f"[tables t] {label} bucket starts: {len(slabs)} table(s) of "
          f"{nb + 1} entries over {res['rows']} rows ({real_rows} real), "
@@ -1047,7 +1104,8 @@ def _bucket_t(seed_mode, label: str, k: int, bbits: int, shift: int,
          f"{wrapper_ms:.6f} ms), plain {plain_ms:.6f} ms, searchsorted "
          f"{library_ms:.6f} ms, old path "
          f"{'-' if old_ms is None else f'{old_ms:.6f} ms'}; bound "
-         f"{res['bound_ms']:.6f} ms ({res['bound_by']}); widest gap: a "
+         f"{res['bound_ms']:.6f} ms ({res['bound_by']}), yardstick (sum + "
+         f"fill) {yard_ms:.6f} ms; widest gap: a "
          f"boundary's {widest} entries ({wide} over 32, the warp's), the "
          f"grid's {grid_gap}")
     del outs

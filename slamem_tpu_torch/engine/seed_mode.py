@@ -225,11 +225,14 @@ def seed_table_rows(text: torch.Tensor, sa: torch.Tensor, k: int
     sa[i] + k) of every SA row i, and sa[i] with the sign bit set where
     that window is invalid (seed_table_rows_plain's arrays).
 
-    CUDA tensors launch ``slamem_seed_table`` of ``kernels/csrc/
-    seedkeys.cu`` on the current stream (one thread per row, which reads
-    its row's window; no text-order key array, no gather), without
-    synchronising, and count the launch in ``seed_table_rows.launches``;
-    zero rows launch nothing. CPU tensors take seed_table_rows_plain.
+    CUDA tensors launch the two kernels of ``kernels/csrc/seedkeys.cu``
+    on the current stream, without synchronising: ``slamem_seed_plane``
+    packs the text into a 2-bit plane (31 codes a word, its bit 0 set when
+    the word holds a special), and ``slamem_seed_gather`` reads each row's
+    window from the plane (4 rows a thread), or from the text where a flag
+    is set (the exact path). The plane is scratch, freed on return. The
+    pair counts as one launch in ``seed_table_rows.launches``; zero rows
+    launch nothing. CPU tensors take seed_table_rows_plain.
     """
     _check_1d("text", text, torch.uint8, text.device)
     _check_1d("sa", sa, torch.int32, text.device)
@@ -241,12 +244,20 @@ def seed_table_rows(text: torch.Tensor, sa: torch.Tensor, k: int
     sa_aug = torch.empty_like(sa)
     if rows == 0:
         return refk, sa_aug
-    fn = load_seedkeys().seed_table
+    n = text.numel()
+    words = -(-n // 31)
+    # an even count of plane words: the gather loads aligned pairs
+    plane = torch.empty(words + (words & 1), dtype=torch.int64,
+                        device=sa.device)
+    kern = load_seedkeys()
     with torch.cuda.device(sa.device):
         stream = torch.cuda.current_stream(sa.device).cuda_stream
-        err = fn(text.data_ptr(), text.numel(), sa.data_ptr(), rows, int(k),
-                 refk.data_ptr(), sa_aug.data_ptr(), stream)
-    _launched(err, "seed table")
+        _launched(kern.seed_plane(text.data_ptr(), n, plane.data_ptr(),
+                                  stream), "seed plane")
+        _launched(kern.seed_gather(text.data_ptr(), n, plane.data_ptr(),
+                                   sa.data_ptr(), rows, int(k),
+                                   refk.data_ptr(), sa_aug.data_ptr(),
+                                   stream), "seed gather")
     seed_table_rows.launches += 1
     return refk, sa_aug
 
@@ -334,13 +345,15 @@ def bucket_starts(refk: torch.Tensor, k: int, bbits: int, shift: int,
 
     CUDA tensors launch ``slamem_bucket_starts`` of ``kernels/csrc/
     buckets.cu`` on the current stream (the boundary fill: every entry
-    written once, no atomics, no histogram, no scan), without
-    synchronising, and count the launch in ``bucket_starts.launches``; the
-    table always has entries, so every call launches. CPU tensors take
-    bucket_starts_plain.
+    written once, no atomics, no histogram, no scan; 32-bit prefixes, so
+    bbits <= 30), without synchronising, and count the launch in
+    ``bucket_starts.launches``; the table always has entries, so every call
+    launches. CPU tensors take bucket_starts_plain.
     """
     _check_1d("refk", refk, torch.int64, refk.device)
     _check_k(k)
+    if not 0 <= bbits <= 30:
+        raise ValueError(f"bbits must lie in [0, 30], got {bbits}")
     nb = 1 << bbits
     if out is not None:
         _check_1d("out", out, torch.int32, refk.device)

@@ -536,6 +536,80 @@ def test_key_kernels_equal_plain(cuda, k):
             seed_mode.packed_key_words.launches) == before
 
 
+def _plane_plain(text: torch.Tensor) -> torch.Tensor:
+    """The seed table's plane by torch ops: word w = codes [31 w, 31 w +
+    31) 2 bits each, character 31 w in bits 63..62 (specials' codes masked
+    to 2 bits: only unflagged words are compared), bit 0 = a code >= 4 or
+    a position past the text in the word."""
+    n = text.numel()
+    words = -(-n // 31)
+    codes = torch.full((31 * words,), 4, dtype=torch.int64,
+                       device=text.device)
+    codes[:n] = text
+    codes = codes.view(words, 31)
+    at = 2 * (31 - torch.arange(31, device=text.device))
+    plane = ((codes & 3) << at).sum(1)          # wraps into the sign bit
+    return plane | (codes >= 4).any(1).to(torch.int64)
+
+
+def _edge_codes(n: int, variant: str, seed: int) -> np.ndarray:
+    """Codes of length n: "clean", "edges" (N at the last code of a plane
+    word and the first of another, N first and SEP last) or "ends" (the
+    last codes SEP / N, a special at the last word's start)."""
+    t = np.random.default_rng(seed).integers(0, 4, n).astype(np.uint8)
+    if variant == "edges":
+        t[30::93], t[62::93] = 4, 4
+        t[[0, n - 1]] = [4, CODE_SEP]
+    elif variant == "ends":
+        t[-min(n, 3):] = [CODE_SEP, 4, CODE_SEP][-min(n, 3):]
+        t[(n - 1) // 31 * 31] = CODE_SEP
+    return t
+
+
+@pytest.mark.parametrize("n", [1, 30, 31, 32, 62, 63, 65, 93, 161, 1000,
+                               100_003])
+def test_seed_plane_and_gather_equal_plain(cuda, n):
+    """The seed table's two kernels (csrc/seedkeys.cu): the plane pass's
+    flags == _plane_plain's and its unflagged words too, and the gather ==
+    seed_table_rows_plain with every position a row (every p mod 31), on
+    texts of lengths that are and are not multiples of 31, clean, with
+    specials on word edges and at the end, at K 1, 13, 14, 16, 17, 31, 32,
+    the text as a view at byte offsets 0..15 (odd ones included), the rows
+    as views at 4-byte offsets 0..3 (16-byte loads and row by row); one
+    launch a table."""
+    from slamem_tpu_torch.kernels.seedkeys import load_kernel
+
+    kern = load_kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = torch.from_numpy(np.random.default_rng(210 + n).permutation(n)
+                            .astype(np.int32)).to(cuda)
+    for variant in ("clean", "edges", "ends"):
+        text = torch.from_numpy(_edge_codes(n, variant, 211 + n)).to(cuda)
+        want_plane = _plane_plain(text)
+        keep = (want_plane & 1) == 0
+        plane = torch.empty_like(want_plane)
+        want = {k: seed_mode.seed_table_rows_plain(text, rows, k)
+                for k in (1, 13, 14, 16, 17, 31, 32)}
+        for r in (0, 1, 3, 8, 13, 15):
+            view = _offset_view(text, r)
+            assert kern.seed_plane(view.data_ptr(), n, plane.data_ptr(),
+                                   stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(plane & 1, want_plane & 1), (variant, r)
+            assert torch.equal(plane[keep], want_plane[keep]), (variant, r)
+            for k, wk in want.items():
+                for a in range(4):
+                    big = torch.empty(n + 4, dtype=torch.int32, device=cuda)
+                    sa = big[a:a + n]
+                    sa.copy_(rows)
+                    before = seed_mode.seed_table_rows.launches
+                    got = seed_mode.seed_table_rows(view, sa, k)
+                    torch.cuda.synchronize()
+                    assert seed_mode.seed_table_rows.launches == before + 1
+                    for g, w in zip(got, wk):
+                        assert torch.equal(g, w), (variant, r, k, a)
+
+
 def _bucket_case(w0: np.ndarray, k: int, seed: int) -> torch.Tensor:
     """Sorted int64 keys whose word 0 is w0 (sorted), the lower
     characters (k > 16) random."""
@@ -596,6 +670,42 @@ def test_bucket_kernel_equals_plain(cuda, case):
             refk.cpu(), k, bbits, shift, base, real))
         assert seed_mode.bucket_probes(k, 1, got) == seed_mode.bucket_probes(
             k, 1, want)
+
+
+@pytest.mark.parametrize("case", sorted(_bucket_cases()))
+def test_bucket_kernel_alignment(cuda, case):
+    """The bucket-start kernel == its plain version and == searchsorted of
+    the rows' prefixes over every bucket, with the rows as views at 8-byte
+    offsets 0 and 1 (the warp steps' origin) and the table written into
+    ``out`` rows at 4-byte offsets 0..3 of a larger buffer (the 16-byte
+    stores' ragged ends), with and without pads."""
+    k, bbits, shift, w0 = _bucket_cases()[case]
+    keys = _bucket_case(w0, k, 212).to(cuda)
+    n, nb = keys.numel(), 1 << bbits
+    ar = torch.arange(nb + 1, dtype=torch.int64, device=cuda)
+    for o in (0, 1):
+        big = torch.empty(n + 2, dtype=torch.int64, device=cuda)
+        refk = big[o:o + n]
+        refk.copy_(keys)
+        for real in (n, n // 3):
+            want = seed_mode.bucket_starts_plain(refk, k, bbits, shift, 0,
+                                                 real)
+            rel = seed_mode._key_word0(refk, k).clone()
+            rel[real:] = seed_mode._PAD_WORD0
+            pref = (rel >> shift).clamp(max=nb - 1)
+            lib = torch.searchsorted(pref, ar, side="left").to(torch.int32)
+            assert torch.equal(lib, want), (o, real)
+            for a in range(4):
+                buf = torch.full((nb + 5,), -9, dtype=torch.int32,
+                                 device=cuda)
+                out = buf[a:a + nb + 1]
+                got = seed_mode.bucket_starts(refk, k, bbits, shift, 0, real,
+                                              out)
+                torch.cuda.synchronize()
+                assert got.data_ptr() == out.data_ptr()
+                assert torch.equal(out, want), (o, real, a)
+                assert (buf[:a] == -9).all(), (o, real, a)
+                assert (buf[a + nb + 1:] == -9).all(), (o, real, a)
 
 
 @pytest.mark.parametrize("k", range(1, 33))

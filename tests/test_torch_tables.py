@@ -1,25 +1,34 @@
 """Port vs JAX package: the seed tables' kernels, modelled on the CPU.
 
 The kernels of ``kernels/csrc/seedkeys.cu`` (the window packer behind
-``seed_table_rows`` and ``packed_key_words``) and ``kernels/csrc/
-buckets.cu`` (the boundary fill behind ``bucket_starts``) run only on a
-card (tests/test_torch_cuda.py holds them to their plain versions there).
-Here numpy models of their arithmetic, step for step, are held to the JAX
-package on the same numpy inputs:
+``packed_key_words``, the plane pass and gather behind
+``seed_table_rows``) and ``kernels/csrc/buckets.cu`` (the boundary fill
+behind ``bucket_starts``) run only on a card (tests/test_torch_cuda.py
+holds them to their plain versions there). Here numpy models of their
+arithmetic, step for step, are held to the JAX package on the same numpy
+inputs:
 
 * the window packer: each window from the 16-byte chunks it touches at the
   text's real address (residues 0..15), by a word select and a funnel
   shift, or byte by byte within 16 L bytes of either end (a byte past the
   text or the window read as N); the special mask, the packed lanes and
   the truncation at the first special == ``packed_key_words`` (K in
-  {1, 8, 13, 14, 16, 17, 20, 31, 32}, strides 1, 8, 14, 16) and
-  ``seed_table`` (keys and sa_aug in SA order);
-* the boundary fill: the three gaps the grid fills, then each warp's
-  contiguous range of entries, 32 a store, the row of each by a five-step
-  search over the warp's prefixes == ``_build_bucket_table`` (direct,
-  shifted, clamped; empty buckets at both ends, long gaps, one bucket
-  holding every row) and ``_virtual_bucket_tables`` (slab bases, pads
-  clamped into the top bucket); every entry written exactly once.
+  {1, 8, 13, 14, 16, 17, 20, 31, 32}, strides 1, 8, 14, 16);
+* the seed table's plane pass (31 codes a word from the packer, its flag
+  in bit 0) and gather (a row's key from the one or two words under its
+  window, or the packer over the text where a flag is set or the window
+  runs past the text) == ``seed_table`` at K 1..32 (keys and sa_aug in
+  SA order), and == ``packed_key_words`` at every row of short texts
+  (lengths on and off a multiple of 31, specials on word edges and at the
+  end), with the rows sent to the exact path counted;
+* the boundary fill: the three gaps the grid fills, then each warp step's
+  contiguous range of entries in rounds of 128 (a boundary row marks its
+  first entry, a prefix max gives every entry its row), at both row
+  origins and every 4-byte skew of the table == ``_build_bucket_table``
+  (direct, shifted, clamped; empty buckets at both ends, long gaps, one
+  bucket holding every row, n >> nb and nb >> n, ranges of every length)
+  and ``_virtual_bucket_tables`` (slab bases, pads clamped into the top
+  bucket); every entry written exactly once.
 
 The CPU routes of the wrappers (their plain versions) are held to the same
 outputs. Tolerance: exact — every value is an integer.
@@ -172,17 +181,67 @@ def test_window_packer_model_equal_jax(k, stride):
     assert jvalid.any() and not jvalid.all()
 
 
+# ---------------------------------------------------------------------------
+# A numpy model of the seed table's plane pass and gather (csrc/seedkeys.cu)
+# ---------------------------------------------------------------------------
+
+_FLIP = np.uint64(1 << 63)
+
+
+def _plane_model(text):
+    """The plane as seed_plane_kernel writes it: word w = pack_window of
+    the 31 characters from 31 w shifted up 2 bits (character 31 w + c in
+    bits 63 - 2 c .. 62 - 2 c), bit 0 set when pack_window found the word
+    invalid (a special, or a position past the text)."""
+    words = -(-text.size // 31)
+    key, valid, _ = _packer_model(text, 31 * np.arange(words, dtype=np.int64),
+                                  31)
+    return (key.view(np.uint64) << np.uint64(2)) | (~valid).astype(np.uint64)
+
+
+def _gather_model(text, sa, k):
+    """(refk, sa_aug, rows on the exact path) as seed_gather_kernel computes
+    them: a row whose window lies inside the text in plane words with no
+    flag (the word of its start, and the next one if the window reaches
+    it) takes two shifts of those words, valid; any other row takes
+    pack_window over the text (its real address read)."""
+    n = text.size
+    plane = np.concatenate([_plane_model(text), [np.uint64(0)]])
+    p = sa.astype(np.int64)
+    w = p // 31
+    off = (p - 31 * w).astype(np.uint64)
+    two = off + np.uint64(k) > np.uint64(31)
+    inside = p + k <= n
+    hi = np.where(inside, plane[w], np.uint64(0))
+    lo = np.where(inside & two, plane[w + 1], np.uint64(0))
+    fast = inside & ((hi | lo) & np.uint64(1) == 0)
+    key = ((hi << (np.uint64(2) * off))
+           | (lo >> (np.uint64(62) - np.uint64(2) * off)))
+    key >>= np.uint64(64 - 2 * k)
+    if k == 32:
+        key ^= _FLIP
+    keys = key.view(np.int64).copy()
+    valid = np.ones(p.size, bool)
+    if (~fast).any():
+        ek, ev, _ = _packer_model(text, p[~fast], k)
+        keys[~fast], valid[~fast] = ek, ev
+    aug = np.where(valid, sa, sa | np.int32(-(1 << 31)))
+    return keys, aug, int((~fast).sum())
+
+
 @pytest.fixture(scope="module")
 def index():
     """A JAX index over a text with N runs, separators and an all-T end."""
     return jax_build(_text(3001, 620))   # pads at every slab count below
 
 
-@pytest.mark.parametrize("k", _KS)
+@pytest.mark.parametrize("k", range(1, 33))
 def test_seed_table_model_equal_jax(index, k):
-    """The packer's model at every SA row (sa_aug: the sign bit where the
-    window is invalid), the text at each address residue 0..15, == the JAX
-    package's seed_table; the CPU route of seed_table_rows too."""
+    """The plane pass and gather's model at every SA row (the text at each
+    address residue 0..15; exact-path rows at the N runs, separators and
+    the end) == the JAX package's seed_table (keys, and sa_aug with the
+    sign bit where the window is invalid); the CPU route of
+    seed_table_rows too."""
     jrefk, jsa_aug = jseed.seed_table(index, k)
     want, jsa_aug = _jax_keys(jrefk, k), np.asarray(jsa_aug)
     text, sa = np.array(index.text), np.array(index.sa)
@@ -191,13 +250,86 @@ def test_seed_table_model_equal_jax(index, k):
     assert np.array_equal(refk.numpy(), want)
     assert np.array_equal(sa_aug.numpy(), jsa_aug)
     for r in range(16):
-        got, valid, fast = _packer_model(_at_offset(text, r),
-                                         sa.astype(np.int64), k)
+        got, aug, exact = _gather_model(_at_offset(text, r), sa, k)
         assert np.array_equal(got, want), r
-        aug = np.where(valid, sa, sa | np.int32(-(1 << 31)))
         assert np.array_equal(aug, jsa_aug), r
-        assert fast.any() and not fast.all()
+        assert 0 < exact < sa.size // 2, r
     assert np.all(want[1:] >= want[:-1])                 # sorted
+
+
+def _edge_text(n, variant, seed):
+    """Codes of length n: "clean" (no special: only the last word's past-
+    the-text positions flag it), "edges" (N at the last code of a plane
+    word and the first of another, and at 0, the text ending in SEP),
+    "ends" (the last 1..3 codes SEP / N, and a special at the last word's
+    start)."""
+    t = np.random.default_rng(seed).integers(0, 4, n).astype(np.uint8)
+    if variant == "edges":
+        t[30::93], t[62::93] = 4, 4
+        t[[0, n - 1]] = [4, 5]
+    elif variant == "ends":
+        t[-min(n, 3):] = [5, 4, 5][-min(n, 3):]
+        t[(n - 1) // 31 * 31] = 5
+    return t
+
+
+_EDGE_KS = [1, 13, 14, 16, 17, 31, 32]
+
+
+@pytest.mark.parametrize("n", [1, 30, 31, 32, 62, 63, 65, 93, 161, 1000])
+def test_seed_plane_edges_equal_jax(n):
+    """The plane pass and gather's model on short texts whose length is or
+    is not a multiple of 31 (and of 32), with no special, specials on both
+    sides of word edges, and specials at the end; every position a row (so
+    every p mod 31 below n), K 1, 13, 14, 16, 17, 31, 32 (windows inside
+    one word and straddling two), the text at address residues 0..15 ==
+    the JAX package's packed_key_words gathered at those rows."""
+    rows = np.random.default_rng(640 + n).permutation(n).astype(np.int32)
+    for variant in ("clean", "edges", "ends"):
+        text = _edge_text(n, variant, 641 + n)
+        # the words holding a special or a position past the text
+        pad = np.full(-(-n // 31) * 31 + 31, 4, np.uint8)
+        pad[:n] = text
+        special = (pad.reshape(-1, 31) >= 4).any(axis=1)
+        for k in _EDGE_KS:
+            # the rows the gate sends to the exact path: those whose window
+            # runs past the text or touches a special word
+            gated = ((rows + k > n) | special[rows // 31]
+                     | special[(rows + k - 1) // 31]).sum()
+            words, jvalid = jseed.packed_key_words(jnp.asarray(text), k, 1)
+            want = _jax_keys(words, k)[rows]
+            jaug = np.where(np.asarray(jvalid)[rows], rows,
+                            rows | np.int32(-(1 << 31)))
+            for r in range(16):
+                got, aug, exact = _gather_model(_at_offset(text, r), rows, k)
+                assert np.array_equal(got, want), (variant, k, r)
+                assert np.array_equal(aug, jaug), (variant, k, r)
+                assert exact == gated, (variant, k, r)
+            refk, sa_aug = seed_mode.seed_table_rows(
+                torch.from_numpy(text), torch.from_numpy(rows), k)
+            assert np.array_equal(refk.numpy(), want), (variant, k)
+            assert np.array_equal(sa_aug.numpy(), jaug), (variant, k)
+
+
+def test_seed_plane_words_and_flags():
+    """The plane's layout: character 31 w + c in bits 63 - 2 c .. 62 - 2 c
+    of word w, bit 1 clear; bit 0 (the flag) set exactly when a code >= 4
+    or a position past the text lies in the word, whatever the text's
+    address."""
+    rng = np.random.default_rng(650)
+    text = rng.integers(0, 4, 1000).astype(np.uint8)
+    text[[5, 30, 31, 300, 301, 999]] = [4, 5, 4, 4, 6, 5]
+    want_flag = np.zeros(33, bool)
+    want_flag[[0, 1, 9, 32]] = True
+    at = np.uint64(2) * (31 - np.arange(31, dtype=np.uint64))
+    for r in range(16):
+        plane = _plane_model(_at_offset(text, r))
+        assert plane.size == 33
+        assert np.array_equal((plane & np.uint64(1)).astype(bool), want_flag)
+        assert not (plane & np.uint64(2)).any()
+        for w in np.flatnonzero(~want_flag):
+            codes = text[31 * w:31 * w + 31].astype(np.uint64)
+            assert plane[w] == (codes << at).sum(), (r, w)
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +339,17 @@ def test_seed_table_model_equal_jax(index, k):
 _PAD = (1 << 32) - 1
 
 
-def _fill_model(refk, k, bbits, shift, base=0, real=None):
-    """(starts, writes per entry, widest warp range) as
+def _fill_model(refk, k, bbits, shift, base=0, real=None, origin=0, skew=0):
+    """(starts, writes per entry, widest warp range, 16-byte stores) as
     bucket_starts_kernel fills the table: the grid's three gaps, then each
-    warp of 32 rows its boundaries' contiguous range of entries, 32 a
-    store, each entry's row by the five-step search over the lanes."""
+    warp step of 128 rows (4 a lane, the steps starting at row -origin)
+    its boundaries' contiguous range of entries in rounds of 32 aligned
+    groups of 4 (group g = entries [4 g - skew, 4 g - skew + 4)): each
+    boundary row marks its first entry's slot with its row, a prefix max
+    over the round's 128 slots (4 a lane, then across the lanes, then the
+    carry of the rounds before) gives each entry its row, and a lane
+    stores its group as one 16-byte store where it lies inside the range,
+    else one store an entry inside it."""
     n = refk.size
     nb = 1 << bbits
     real = n if real is None else min(max(real, 0), n)
@@ -223,11 +361,12 @@ def _fill_model(refk, k, bbits, shift, base=0, real=None):
         w0 = (refk >> 32) + (1 << 31)
     w0 = np.where(np.arange(n) < real, w0, _PAD)
     pref = np.minimum((w0 - (base << shift)) >> shift, nb - 1)
+    assert pref.max(initial=0) < 1 << 31
     starts = np.full(nb + 1, -1, np.int64)
     writes = np.zeros(nb + 1, np.int64)
 
-    def write(at, value):
-        np.add.at(writes, at, 1)
+    def write(at, value):          # at: distinct entries
+        writes[at] += 1
         starts[at] = value
 
     # the grid: below row 0, between the last real row and the pads, above
@@ -237,23 +376,34 @@ def _fill_model(refk, k, bbits, shift, base=0, real=None):
     if 0 < real < n:
         write(np.arange(pref[real - 1] + 1, pref[real] + 1), real)
     write(np.arange((pref[n - 1] if n else -1) + 1, nb + 1), n)
-    widest = 0
-    for w in range(0, max(n, nb) + 1, 32):
-        first, last = max(w, 1), min(w + 31, real - 1)
+    widest = wide_stores = 0
+    big = np.iinfo(np.int32).max
+    for s0 in range(-origin, real, 128):
+        first, last = max(s0, 1), min(s0 + 127, real - 1)
         if last < first:
             continue
-        t = np.arange(w, w + 32)
-        cur = np.where(t < first, -1, np.where(
-            t > last, np.iinfo(np.int64).max, pref[np.clip(t, 0, n - 1)]))
-        lo, hi = pref[first - 1], cur[last - w]
-        for e0 in range(lo + 1, hi + 1, 32):
-            e = e0 + np.arange(32)
-            at = np.zeros(32, np.int64)
-            for step in (16, 8, 4, 2, 1):
-                at += np.where(cur[at + step - 1] < e, step, 0)
-            write(e[e <= hi], w + at[e <= hi])
+        lo = pref[first - 1]
+        i = np.arange(s0, s0 + 128)
+        p = np.where(i < first, lo, np.where(
+            i > last, big, pref[np.clip(i, 0, n - 1)]))
+        prev = np.concatenate([[lo], p[:-1]])   # lane 0's row 0: lo
+        hi = p[last - s0]
+        marked = (i <= last) & (p > prev)
+        carry = 0
+        for g0 in range((skew + lo + 1) >> 2, ((skew + hi) >> 2) + 1, 32):
+            base_e = 4 * g0 - skew
+            slots = np.zeros(128, np.int64)
+            m = prev + 1 - base_e
+            here = marked & (m >= 0) & (m < 128)
+            slots[m[here]] = i[here]
+            v = np.maximum(np.maximum.accumulate(slots), carry)
+            carry = v[-1]
+            e = (base_e + np.arange(128)).reshape(32, 4)
+            inside = (e > lo) & (e <= hi)
+            wide_stores += int(inside.all(axis=1).sum())
+            write(e[inside], v.reshape(32, 4)[inside])
         widest = max(widest, hi - lo)
-    return starts, writes, widest
+    return starts, writes, widest, wide_stores
 
 
 def _jax_starts(w0, bbits, shift):
@@ -294,23 +444,78 @@ def _fill_cases():
     ]
 
 
+def _check_fill(name, refk, k, bbits, shift, want, **kwargs):
+    """The fill's model == want at both row origins and every table skew,
+    every entry written once; returns the model's widest range and its
+    16-byte stores at origin 0, skew 0."""
+    stats = None
+    for origin in (0, 1):
+        for skew in range(4):
+            got, writes, widest, wide = _fill_model(
+                refk, k, bbits, shift, origin=origin, skew=skew, **kwargs)
+            assert np.array_equal(got, want), (name, origin, skew)
+            assert (writes == 1).all(), (name, origin, skew)
+            stats = stats or (widest, wide)
+    return stats
+
+
 @pytest.mark.parametrize("case", range(len(_fill_cases())))
 def test_boundary_fill_model_equal_jax(case):
     """The fill's model == the JAX package's _build_bucket_table (direct,
     shifted and clamped tables; empty buckets at both ends, gaps of
     thousands of entries, one bucket holding every row, two-word keys, no
-    rows), every entry written once; the CPU route of bucket_starts too."""
+    rows), every entry written once, the steps at both row origins and the
+    table at each 4-byte skew (ragged group ends at every alignment); the
+    CPU route of bucket_starts too."""
     name, k, bbits, shift, w0 = _fill_cases()[case]
     refk = _keys_of_word0(w0, k, 631 + case)
     want = _jax_starts(np.asarray(w0, np.uint64), bbits, shift)
-    got, writes, widest = _fill_model(refk, k, bbits, shift)
-    assert np.array_equal(got, want), name
-    assert (writes == 1).all(), name
+    widest, wide = _check_fill(name, refk, k, bbits, shift, want)
     port = seed_mode.bucket_starts(torch.from_numpy(refk), k, bbits, shift)
     assert port.dtype == torch.int32
     assert np.array_equal(port.numpy(), want), name
     if name == "long gaps":
         assert widest > 1000           # a warp's range: many stores
+        assert wide > 250              # ... most of them 16 bytes wide
+
+
+# (name, k, bbits, shift, sorted word-0 values): rows far more than
+# buckets, a few rows over a wide table, and ranges of every length 0..9
+# entries a row
+def _fill_shape_cases():
+    rng = np.random.default_rng(660)
+    steps = np.cumsum(np.tile(np.arange(10), 60))
+    return [
+        ("n >> nb", 8, 4, 12, np.sort(rng.integers(0, 1 << 16, 3000))),
+        ("n >> nb, clamped", 14, 6, 16, np.sort(rng.integers(0, 1 << 28,
+                                                             2500))),
+        ("nb >> n", 12, 16, 8, np.sort(rng.integers(0, 1 << 24, 40))),
+        ("one row", 8, 12, 0, np.array([2_000])),
+        ("ragged ranges", 8, 12, 0, steps),
+        ("ragged ranges, two words", 24, 12, 0, steps),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_fill_shape_cases())))
+def test_fill_shapes_model_equal_jax(case):
+    """The 4-rows-a-lane fill's model at the table shapes the first cases
+    miss (n >> nb, nb >> n, one row, warp ranges of every length 0..9
+    entries a row), at both row origins and every table skew, with pads
+    from every tenth of the rows on: == the JAX package's
+    _build_bucket_table, every entry written once; the CPU route too."""
+    name, k, bbits, shift, w0 = _fill_shape_cases()[case]
+    refk = _keys_of_word0(w0, k, 661 + case)
+    want = _jax_starts(np.asarray(w0, np.uint64), bbits, shift)
+    _check_fill(name, refk, k, bbits, shift, want)
+    port = seed_mode.bucket_starts(torch.from_numpy(refk), k, bbits, shift)
+    assert np.array_equal(port.numpy(), want), name
+    n = refk.size
+    for real in sorted({0, n // 10, n // 2, n - 1, n}):
+        plain = seed_mode.bucket_starts(torch.from_numpy(refk), k, bbits,
+                                        shift, 0, real).numpy()
+        w = np.where(np.arange(n) < real, np.asarray(w0, np.uint64), _PAD)
+        assert np.array_equal(plain, _jax_starts(w, bbits, shift)), real
+        _check_fill(name, refk, k, bbits, shift, plain, real=real)
 
 
 _SLAB_CASES = [(10, 3, 3 << 30), (10, 8, 1 << 16), (14, 3, 1 << 20),
@@ -320,9 +525,10 @@ _SLAB_CASES = [(10, 3, 3 << 30), (10, 8, 1 << 16), (14, 3, 1 << 20),
 @pytest.mark.parametrize("k,n_slabs,budget", _SLAB_CASES)
 def test_boundary_fill_slabs_equal_jax(index, k, n_slabs, budget):
     """Per slab, with its base and real rows (the pads clamped into the
-    top bucket, slabs of pads alone past the last row): the fill's model
-    == the JAX package's virtual_slab_tables starts, every entry written
-    once; the CPU route of bucket_starts (into a row of the table) too."""
+    top bucket, slabs of pads alone past the last row) and the alignment
+    of its rows and table row: the fill's model == the JAX package's
+    virtual_slab_tables starts, every entry written once; the CPU route of
+    bucket_starts (into a row of the table) too."""
     clear_device_caches()
     jrefk, _ = jseed.seed_table(index, k)
     refk = _jax_keys(jrefk, k)
@@ -339,8 +545,11 @@ def test_boundary_fill_slabs_equal_jax(index, k, n_slabs, budget):
     for i in range(n_slabs):
         rows = refk_p[i * slab:(i + 1) * slab]
         base = int(jbases[i])
-        got, writes, _ = _fill_model(rows, k, R.bit_length() - 1, shift,
-                                     base, n - i * slab)
+        # the slab's rows and table row at their offsets in the padded
+        # table and the (n_slabs, R + 1) starts
+        got, writes, _, _ = _fill_model(
+            rows, k, R.bit_length() - 1, shift, base, n - i * slab,
+            origin=i * slab % 2, skew=i * (R + 1) % 4)
         assert np.array_equal(got, jstarts[i]), i
         assert (writes == 1).all(), i
         seed_mode.bucket_starts(torch.from_numpy(rows), k,
@@ -365,6 +574,7 @@ def test_wrappers_check_arguments():
         lambda: seed_mode.seed_table_rows(text[::2], sa, 8),
         lambda: seed_mode.bucket_starts(refk.to(torch.int32), 8, 4, 0),
         lambda: seed_mode.bucket_starts(refk[:, None], 8, 4, 0),
+        lambda: seed_mode.bucket_starts(refk, 8, 31, 0),   # nb >= 2^31
         lambda: seed_mode.bucket_starts(refk, 8, 4, 0, out=torch.empty(
             16, dtype=torch.int32)),
     ]
