@@ -39,7 +39,10 @@ Phases, each of which raises on failure (exit status non-zero):
          (scan_mode._scan_lanes with the layout's plain occ) on the card:
          lo and width exactly equal; kernel time by CUDA events after a
          warm-up, the plain run's time and its count of backward-extend
-         attempts, the bound and a latency estimate;
+         attempts and expansions, the bound, the sectors the kernel
+         touches (counted from the plain run's trace of positions, for
+         the whole-row design and this one) with their bound, and a latency
+         estimate;
   3. the scan slice end to end through the CLI, ``-engine scan -l 20
      -device cuda``, on the headline pair: the listing must hold exactly
      59,101 MEMs (the count the JAX package records in BENCH_DETAIL.json),
@@ -74,7 +77,9 @@ Phases, each of which raises on failure (exit status non-zero):
          ``-l 50``: 286,645, exact and maximal (the chr21-scale stand-in);
      3c. the same 40 Mbp pair through ``-engine scan -l 50 -device cuda``
          (10 chunks; its LCP array, 160 MB, is larger than L2): 286,645,
-         listing bytes == 5c's;
+         listing bytes == 5c's; then the scan frontend's split, cold on a
+         fresh index: the LCP array, its pyramid, the nibble table and
+         the 10 scan launches, each timed apart;
      5d. the headline reference against 10 strains
          ``mutate(ref, 0.01 + 0.001 j, 0.001, seed=100 + j)`` as one
          multi-FASTA query at ``-l 30``: 478,358;
@@ -306,15 +311,123 @@ def _kernel_vs_plain(rank, name: str, rows, chars, positions,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def _row_sectors(j, per_row: int, per_chunk: int):
+    """32-byte sectors the scan kernel's nearer-counter count reads at each
+    position j (int64): up from row b's counter, its sector and those of
+    chunks 1..ceil(w / per_chunk); down from the next row's (w in the
+    row's upper half), the sectors of the chunks from w // per_chunk + 1
+    to 31 and one counter sector (two chunks a sector)."""
+    import torch
+
+    w = j % per_row
+    down = w >= per_row // 2
+    up = (w + per_chunk - 1) // per_chunk // 2 + 1
+    return torch.where(down, 16 - (w // per_chunk + 1) // 2 + 1, up)
+
+
+def _pyramid_sectors(pyr, exp, batch: int = 1 << 17) -> tuple[int, int]:
+    """32-byte sectors of the pyramid blocks that the expansions ``exp``
+    ((4, E): l, r, v, shortening) read: (the whole-row design: whole blocks,
+    the new one: in the ascent only the lanes' int4s on the position's
+    side). Each side ascends while unresolved and descends through whole
+    blocks, as ``csrc/rank.cu::expand_warp``; slots past a level's end and
+    blocks left of 0 read nothing."""
+    import torch
+
+    F = 128
+    idx = torch.arange(F, device=exp.device)
+    old = new = 0
+    sizes = [lv.numel() for lv in pyr.levels]
+
+    def sectors(t, blk, lo, hi):
+        a = (blk * F + lo).clamp(max=sizes[t])
+        e = (blk * F + hi).clamp(max=sizes[t])
+        return torch.where((blk >= 0) & (e > a), (e - 1) // 8 - a // 8 + 1,
+                           0).sum()
+
+    def block(t, blk):
+        pos = blk[:, None] * F + idx[None, :]
+        ok = (blk[:, None] >= 0) & (pos < sizes[t])
+        vals = pyr.levels[t][pos.clamp(0, sizes[t] - 1)].to(torch.int64)
+        return torch.where(ok, vals, 2**31 - 1)
+
+    for s in range(0, exp.shape[1], batch):
+        part = exp[:, s:s + batch].to(torch.int64)
+        v = part[2]
+        for left, pos in ((True, part[0]), (False, part[1])):
+            level = torch.full_like(pos, -1)
+            hit = torch.zeros_like(pos)
+            for t in range(len(sizes)):
+                act = level < 0
+                if not bool(act.any()):
+                    break
+                blk = torch.div(pos, F, rounding_mode="floor")
+                off = pos - blk * F
+                side = idx[None, :] <= off[:, None] if left else \
+                    idx[None, :] >= off[:, None]
+                below = (block(t, blk) < v[:, None]) & side
+                if left:
+                    cand = torch.where(below, idx, -1).amax(1)
+                    lo, hi = torch.zeros_like(off), off // 4 * 4 + 4
+                else:
+                    cand = torch.where(below, idx, F).amin(1)
+                    lo, hi = off // 4 * 4, torch.full_like(off, F)
+                b_act = torch.where(act, blk, -1)
+                old += int(sectors(t, b_act, 0, F))
+                new += int(sectors(t, b_act, lo, hi))
+                ok = act & ((cand >= 0) if left else (cand < F))
+                level = torch.where(ok, t, level)
+                hit = torch.where(ok, blk * F + cand, hit)
+                pos = torch.where(act, blk - 1 if left else blk + 1, pos)
+            for t in range(int(level.max()), 0, -1):
+                down = level >= t
+                blk = torch.where(down, hit, -1)
+                both = int(sectors(t - 1, blk, 0, F))
+                old += both
+                new += both
+                below = block(t - 1, blk) < v[:, None]
+                cand = (torch.where(below, idx, -1).amax(1) if left else
+                        torch.where(below, idx, F).amin(1))
+                hit = torch.where(down, hit * F + cand, hit)
+    return old, new
+
+
+def _scan_sectors(rank, trace, pyr, layout: str, m: int) -> dict:
+    """Sectors the scan kernel touches on one chunk, counted from the
+    plain loop's ``trace`` (``scan_mode.ScanTrace``), for the whole-row
+    design (16 a rank row, whole pyramid blocks) and this one (the
+    nearer-counter chunks, the ascent's side of each block): rank rows (2
+    an attempt that reads them), pyramid blocks, LCP values (2 a
+    shortening) and the query and output streams (9 B a position)."""
+    import torch
+
+    per_row = rank.SCAN_LAYOUTS[layout]
+    per_chunk = per_row // (rank.ROW_WORDS // 4 - 1)
+    j = torch.cat([o.reshape(-1) for o in trace.occ]).to(torch.int64)
+    exp = torch.cat(trace.expand, dim=1)
+    rows_new = int(_row_sectors(j, per_row, per_chunk).sum())
+    blocks_old, blocks_new = _pyramid_sectors(pyr, exp)
+    lcp = 2 * int(exp[3].sum())
+    stream = -(-9 * m // 32)
+    res = {"row_reads": j.numel(), "expansions": exp.shape[1],
+           "rows_old": 16 * j.numel(), "rows_new": rows_new,
+           "blocks_old": blocks_old, "blocks_new": blocks_new,
+           "lcp": lcp, "stream": stream}
+    res["old"] = res["rows_old"] + blocks_old + lcp + stream
+    res["new"] = rows_new + blocks_new + lcp + stream
+    return res
+
+
 def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
                           lane_block: int) -> dict:
     """Phase 2s for one table layout: the scan kernel against the plain
     lockstep loop (the layout's plain occ) on one query chunk ``qt``,
     exact; kernel time by CUDA events after a warm-up; the plain run's
-    time and backward-extend attempts; the bound (bytes: tables, pyramid,
-    query, 8 B out per position, each once; ops: the rank-row integer work
-    of the attempts) and a latency estimate (dependent round trips per
-    warp slot)."""
+    time, backward-extend attempts and expansions (its trace); the bound
+    (bytes: tables, pyramid, query, 8 B out per position, each once; ops:
+    the rank-row integer work of the attempts), the sectors touched
+    (``_scan_sectors``) at the memory rate, and a latency estimate
+    (dependent round trips per warp slot)."""
     import torch
 
     rows = (rank.nibble_rows if layout == "nib" else
@@ -329,10 +442,10 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
 
     got = kernel()
     torch.cuda.synchronize()
-    attempts: list[int] = []
+    trace = scan_mode.ScanTrace()
     t0 = time.perf_counter()
     want = scan_mode._scan_lanes(index, pyr, lambda c, p: plain_occ(
-        rows, c, p), qt, L, lane_block, attempts)
+        rows, c, p), qt, L, lane_block, trace)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
@@ -345,11 +458,11 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
     S = lane_block + L
     lanes = -(-m // lane_block)
     live_steps = sum(min(S, m - g * lane_block) for g in range(lanes))
-    total = sum(attempts)
-    # every failed attempt but the root's shortens (one expansion), and a
-    # step that starts at depth L expands first: ~ the positions at depth L
-    expansions = (total - live_steps) + int((got[1] > 0).sum())
-    round_trips = total + expansions      # each >= one dependent L2 trip
+    total = sum(trace.attempts)
+    sectors = _scan_sectors(rank, trace, pyr, layout, m)
+    del trace
+    # each attempt and each expansion >= one dependent L2 trip
+    round_trips = total + sectors["expansions"]
     props = torch.cuda.get_device_properties(0)
     per_sm = rank.load_kernel().blocks_per_sm(0 if layout == "k0" else 1)
     slots = min(lanes, props.multi_processor_count * per_sm * 8)
@@ -360,8 +473,12 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
     bound_ops = total * 2 * words * (8 if layout == "nib" else 16)
     bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    sector_ms = {k: sectors[k] * 32 / HBM_BYTES_PER_S * 1e3
+                 for k in ("old", "new")}
     res = {"positions": m, "lanes": lanes, "live_steps": live_steps,
-           "attempts": total, "inner_iterations": len(attempts),
+           "attempts": total, "sectors": sectors,
+           "sector_bound_ms": sector_ms["new"],
+           "whole_row_sector_bound_ms": sector_ms["old"],
            "round_trips": round_trips, "blocks_per_sm": per_sm,
            "warp_slots": slots, "round_trips_per_slot": per_slot,
            "us_per_round_trip": ms * 1e3 / per_slot,
@@ -370,15 +487,72 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     _log(f"[scan 2s] scan_lanes {layout}: {m} positions, {lanes} lanes, "
-         f"{live_steps} live steps, {total} attempts in "
-         f"{len(attempts)} lockstep iterations; kernel {ms:.6f} ms, plain "
-         f"loop {plain_ms:.3f} ms (with the attempt count); bound "
+         f"{live_steps} live steps, {total} attempts, "
+         f"{sectors['expansions']} expansions; kernel {ms:.6f} ms, plain "
+         f"loop {plain_ms:.3f} ms (with the trace); bound "
          f"{res['bound_ms']:.6f} ms (bytes {bound_bytes}: {bytes_ms:.6f} ms,"
-         f" ops {bound_ops}: {ops_ms:.6f} ms); {per_sm} blocks/SM, "
+         f" ops {bound_ops}: {ops_ms:.6f} ms); sectors touched "
+         f"{sectors['new']} (rank rows {sectors['rows_new']}, pyramid blocks "
+         f"{sectors['blocks_new']}, LCP {sectors['lcp']}, query and output "
+         f"{sectors['stream']}): sector bound {sector_ms['new']:.6f} ms; "
+         f"whole rows and blocks {sectors['old']} (rows "
+         f"{sectors['rows_old']}, blocks {sectors['blocks_old']}): "
+         f"{sector_ms['old']:.6f} ms; "
+         f"{per_sm} blocks/SM, "
          f"{slots} warp slots, {per_slot:.1f} dependent round trips per "
          f"slot ({round_trips} in all): {res['us_per_round_trip']:.3f} us "
          f"each as measured, latency estimate {res['latency_est_ms']:.6f} ms"
          f" at {ROUND_TRIP_US} us; exact")
+    return res
+
+
+def _scan_frontend_split(rank, scan_mode, seed_mode, index, qry,
+                         L: int) -> dict:
+    """Phase 3c's scan frontend in parts, cold on a fresh index as in a
+    CLI call (host clock, each part ending in a synchronise): the LCP
+    array (``lcp_adjacent``), its pyramid (``LcpPyramid.build``), the
+    nibble table, and the scan launches over the query's chunks (also by
+    CUDA events)."""
+    import torch
+
+    from slamem_tpu_torch.index.lcp import lcp_adjacent
+    from slamem_tpu_torch.kernels.lcp_search import LcpPyramid
+
+    qt = seed_mode.query_to_device(qry, "cuda")[1]
+    chunk = scan_mode._SCAN_CHUNK
+    res = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lcp = lcp_adjacent(index.text, index.sa)
+    torch.cuda.synchronize()
+    res["lcp_adjacent_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.derived["lcp_pyramid"] = LcpPyramid.build(lcp)
+    torch.cuda.synchronize()
+    res["pyramid_build_s"] = time.perf_counter() - t0
+    del lcp
+    t0 = time.perf_counter()
+    rank.nibble_rows(index)
+    torch.cuda.synchronize()
+    res["nibble_table_s"] = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    before = rank.scan_lanes.launches["nib"]
+    t0 = time.perf_counter()
+    start.record()
+    for a in range(0, qt.numel(), chunk):
+        scan_mode.scan_intervals(index, qt[a:a + chunk + L], L)
+    end.record()
+    torch.cuda.synchronize()
+    res["scan_s"] = time.perf_counter() - t0
+    res["scan_event_ms"] = start.elapsed_time(end)
+    res["scan_launches"] = rank.scan_lanes.launches["nib"] - before
+    _log(f"[scan 3c] frontend split (cold, fresh index): lcp_adjacent "
+         f"{res['lcp_adjacent_s']:.6f} s, LcpPyramid.build "
+         f"{res['pyramid_build_s']:.6f} s, nibble table "
+         f"{res['nibble_table_s']:.6f} s, {res['scan_launches']} scan "
+         f"launches {res['scan_s']:.6f} s ({res['scan_event_ms']:.6f} ms by "
+         f"CUDA events)")
     return res
 
 
@@ -1890,6 +2064,9 @@ def run() -> int:
         if Path(scan40).read_bytes() != Path(seed_out).read_bytes():
             raise AssertionError("3c: scan listing != 5c's seed listing")
         _log("[scan 3c] listing == 5c's")
+        st40["frontend_split"] = _scan_frontend_split(
+            rank, scan_mode, seed_mode, build_index(ref, device="cuda"), qry,
+            CHR21_L)
         torch.cuda.synchronize()
         _log("[seed] " + json.dumps(seed, sort_keys=True))
         # 7b. the boundary backend at 5c; 8. the native host paths at 5c
@@ -2031,10 +2208,10 @@ def run() -> int:
     # on the main path their device function runs inside the scan kernel
     # of the same layout, whose launches (phases 3k and 3) these are
     for name, c, layout, fn, tpu in (
-            ("rank_rows", checks["rank_rows"], "k0", "occ2_k0_warp",
+            ("rank_rows", checks["rank_rows"], "k0", "occ2_warp<K0Layout>",
              "slamem_tpu/kernels/rank.py:87"),
             ("rank_rows_nib", checks["rank_rows_nib"], "nib",
-             "occ2_nib_warp", "slamem_tpu/kernels/rank.py:253")):
+             "occ2_warp<NibLayout>", "slamem_tpu/kernels/rank.py:253")):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": tpu,

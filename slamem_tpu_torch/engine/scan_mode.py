@@ -28,6 +28,7 @@ and on failure climb parent LCP intervals until the step succeeds.
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import numpy as np
@@ -90,8 +91,33 @@ def _backward(index: FMIndex, occ_fn, c: torch.Tensor, lo: torch.Tensor,
     return base + occ[:k], base + occ[k:]
 
 
+@dataclasses.dataclass
+class ScanTrace:
+    """What the lanes of ``_scan_lanes`` read, as the scan kernel reads it
+    (for the chip check's counts of attempts and sectors): per inner
+    iteration the number of pending lanes (backward-extend attempts); the
+    (l, r) of each attempt that reads rank rows (c < 4), one (2, k) int32
+    tensor an iteration; the (l, r, v, shortening) of each expansion, one
+    (4, k) int32 tensor a pass: a pre-expansion at the depth cap
+    (shortening 0), or a shortening after a failed attempt (1), which also
+    reads LCP[l] and LCP[r]."""
+
+    attempts: list[int] = dataclasses.field(default_factory=list)
+    occ: list[torch.Tensor] = dataclasses.field(default_factory=list)
+    expand: list[torch.Tensor] = dataclasses.field(default_factory=list)
+
+    def add_expansions(self, at: torch.Tensor, l: torch.Tensor,
+                       r: torch.Tensor, v: torch.Tensor,
+                       shortening: int) -> None:
+        """Record the expansions of lanes ``at``: (l, r) to depth v."""
+        if bool(at.any()):
+            va = v[at]
+            self.expand.append(torch.stack(
+                [l[at], r[at], va, torch.full_like(va, shortening)]))
+
+
 def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
-                L: int, lane_block: int, attempts: list[int] | None = None
+                L: int, lane_block: int, trace: ScanTrace | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lockstep capped-MS scan; returns (lo, width) at depth L per position.
 
@@ -99,8 +125,7 @@ def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
     right (warm-up). Step s visits column S-1-s of every lane; from step L
     on, that column is in the lane's own block and is recorded. The inner
     loop runs until no lane is pending, one host read per iteration. A
-    list ``attempts`` receives the number of pending lanes (backward-extend
-    attempts) of each inner iteration.
+    ``trace`` receives what the lanes read (``ScanTrace``).
     """
     m = qt.shape[0]
     n = index.n
@@ -130,6 +155,8 @@ def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
         # pre-expansion: a depth-L state must drop to depth L-1 before the
         # next prepend so the cap is preserved
         at_cap = live & (d == L)
+        if trace is not None:
+            trace.add_expansions(at_cap, l, r, depth_cap, 0)
         el, er = expand(pyr, l, r, depth_cap)
         l = torch.where(at_cap, el, l)
         r = torch.where(at_cap, er, r)
@@ -137,14 +164,17 @@ def _scan_lanes(index: FMIndex, pyr: LcpPyramid, occ_fn, qt: torch.Tensor,
 
         pending = live
         while bool(pending.any()):
-            if attempts is not None:
-                attempts.append(int(pending.sum()))
             l2, r2 = _backward(index, occ_fn, c, l, r)
             ok = (c < 4) & (l2 < r2)
             succ = pending & ok
             dead = pending & ~ok & (d == 0)
             shorten = pending & ~ok & (d > 0)
             pd = parent_depth(pyr, l, r)
+            if trace is not None:
+                trace.attempts.append(int(pending.sum()))
+                reads = pending & (c < 4)
+                trace.occ.append(torch.stack([l[reads], r[reads]]))
+                trace.add_expansions(shorten, l, r, pd, 1)
             sl, sr = expand(pyr, l, r, pd)
             l = torch.where(succ, l2, torch.where(
                 dead, 0, torch.where(shorten, sl, l)))

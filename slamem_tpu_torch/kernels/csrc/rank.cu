@@ -2,13 +2,14 @@
 // tables, and the scan engine's backward search built on it, for NVIDIA
 // Hopper (sm_90a). One table layout per template argument: K0 (byte
 // symbols) and nibbles. Three parts:
-//   * warp-wide device functions occ_k0_warp / occ_nib_warp (and their
-//     two-position forms occ2_*_warp): one 512 B row read, one count;
+//   * warp-wide device functions occ_warp<Layout> (one position) and
+//     occ2_warp<Layout> (the two positions of a backward-extend attempt):
+//     the row's 16-byte chunks that hold counted symbols, one count;
 //   * the standalone kernels rank_rows_kernel / rank_rows_nib_kernel, one
-//     warp per query, each a thin shell around its device function;
+//     warp per query, each a thin shell around occ_warp;
 //   * scan_lanes_kernel<Layout>, one warp per scan lane, which runs the
 //     scan engine's whole capped backward-search state machine and calls
-//     the same device functions for every occ pair.
+//     occ2_warp for every occ pair.
 //
 // --- K0 layout (rank_rows_kernel) ---
 //
@@ -18,20 +19,14 @@
 // bwt[0 : 496 b]; words 4-127 hold the row's 496 BWT symbols, one byte each,
 // little-endian (values 0..6, pad 6). So
 //     occ(c, j) = rows[j / 496][c] + #{s < j % 496 : symbol s of that row == c}.
-//
-// What bounds it: one query reads one random 512 B row and does a few dozen
-// integer operations, so the kernel is bound by random row reads from device
-// memory (from L2 when the table fits its 50 MB, as at 5 Mbp). The design
-// makes each row read one coalesced access: one warp per query, lane t loads
-// words 4t..4t+3 as one 16 B load. Lane 0's 16 bytes are the four counters;
-// lanes 1..31 each count their 16 symbols below the position with an
-// unrolled byte compare, and __reduce_add_sync sums the lanes. (A
-// __vcmpeq4 + byte-mask + __popc form overcounted in the partial word when
-// measured on an H100; the plain byte compare is exact, and the row read,
-// not these few integer operations, bounds the kernel.) Unlike the TPU
-// kernel, the counter word is folded in: the TPU split existed only because
-// of a Mosaic compile limit, and there is no DMA/semaphore pipeline to carry
-// over.
+// A chunk's count is __vcmpeq4 against c in every byte, a mask of the bytes
+// on the counted side of the position built per byte (low_mask), and __popc
+// of the marks / 8. (An earlier __vcmpeq4 form overcounted in the partial
+// word on an H100; tests/test_torch_rank_count.py holds a model of this one
+// to the byte compare at every position and mask.) Unlike
+// the TPU kernel, the counter word is folded in: the TPU split existed only
+// because of a Mosaic compile limit, and there is no DMA/semaphore pipeline
+// to carry over.
 //
 // --- nibble layout (rank_rows_nib_kernel) ---
 //
@@ -40,23 +35,40 @@
 // rank path). Row b of the table is 128 int32 words (512 B): words 0-3 are
 // the counts of A, C, G and T in bwt[0 : 992 b]; words 4-127 each hold 8
 // symbols, symbol i in bits 4i..4i+3 (values 0..6, pad 6). So, with
-// w = within / 8 and p = within % 8 for within = j % 992,
-//     occ(c, j) = rows[j / 992][c]
-//               + #{zero nibbles of word ^ c*0x11111111 in words < w}
-//               + #{zero nibbles in nibbles 0..p-1 of word w}.
-// Zero-nibble test (exact, no borrow between nibbles): with t = y & 0x77777777,
-// the high bit of a nibble of ~((t + 0x77777777) | y) is set iff the nibble of
-// y is zero; __popc counts the marks.
+// within = j % 992,
+//     occ(c, j) = rows[j / 992][c] + #{s < within : nibble s == c}.
+// Zero-nibble test (exact, no borrow between nibbles): with y = word ^
+// c*0x11111111 and t = y & 0x77777777, the high bit of a nibble of
+// ~((t + 0x77777777) | y) is set iff the nibble of y is zero; __popc counts
+// the marks under the nibble mask.
 //
-// What bounds it: as K0, one random 512 B row read per query (992 symbols
-// instead of 496), from L2 or device memory; the SWAR count is ~8 integer
-// operations per word. The row is read as K0 reads it: lane t loads words
-// 4t..4t+3 as one 16 B load, one coalesced 512 B access. Lane 0's 16 bytes
-// are the four counters; lanes 1..31 count in symbol words 4(t-1) ..
-// 4(t-1)+3. The row width is K0's, fixed at compile time (the JAX package
-// also keeps it as a knob, which nothing in the port uses). A first version
-// that read one 4 B word per lane and step took 1.5x K0's time on an H100
-// (PERF.md).
+// --- what bounds a row count, and the design ---
+//
+// A row is 32 chunks of 16 bytes (chunk 0: the counters; chunk k >= 1:
+// symbols 16 (k - 1) .. (K0) or 32 (k - 1) .. (nibbles)). Measured on an
+// H100 (PERF.md), reading whole rows made the scan kernel move ~9 GB a 4M
+// chunk through L2 and issue ~100-250 warp instructions a dependent access,
+// so both the sectors and the instructions are cut:
+//   * nearer counter: with w = j % per_row, a position in the row's lower
+//     half counts symbols [0, w) up from rows[b][c]; one in the upper half
+//     counts symbols [w, per_row) down from the next row's counter
+//     rows[b + 1][c] (= rows[b][c] + the row's own count). The table's
+//     last row, which holds j = n, has no successor: its down-count starts
+//     from occ(c, n) (its counter plus its whole count: the pads past n
+//     never count), which each warp counts once before its first step
+//     (last_row_totals). Either way at most 16 symbol chunks are read, and
+//     a chunk wholly on the uncounted side issues no load: about 5 of a
+//     row's 16 sectors on average, at most 9 (the counter's sector
+//     included);
+//   * occ2_warp gives each position of a pair a half-warp (lanes 0-15: jlo,
+//     16-31: jhi): half lane h reads chunk h + 1 (counting up) or h + 16
+//     (counting down), so one 16-byte load instruction and one chunk count
+//     per lane serve both positions; each lane loads its half's counter as
+//     a broadcast word; the two halves' counts (each < 2^16) are packed
+//     into one __reduce_add_sync, and one __shfl_xor_sync swaps the halves'
+//     results.
+// Pad symbols (6) and the BWT sentinel (6) never equal c (0..3), so they
+// count in neither direction.
 
 #include <climits>
 #include <cstdint>
@@ -66,6 +78,7 @@
 namespace {
 
 constexpr int kRowWords = 128;
+constexpr int kRowChunks = kRowWords / 4;                 // 16-byte chunks
 constexpr int kCntWords = 4;
 constexpr int kSymsPerRow = (kRowWords - kCntWords) * 4;  // 496
 constexpr int kNibPerRow = (kRowWords - kCntWords) * 8;   // 992
@@ -74,105 +87,125 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ int warp_lane() { return threadIdx.x & 31; }
 
-// lane t's 16 bytes of the row that holds position j (words 4t..4t+3)
-template <int kPerRow>
-__device__ __forceinline__ int4 load_row(const int4* __restrict__ rows,
-                                         int32_t j) {
-  return __ldg(rows + static_cast<int64_t>(j / kPerRow) * (kRowWords / 4) +
-               warp_lane());
+// the low `bits` bits set, bits clamped to [0, 32]
+__device__ __forceinline__ uint32_t low_mask(int bits) {
+  return __funnelshift_lc(0xFFFFFFFFu, 0u, static_cast<uint32_t>(max(bits, 0)));
 }
 
-// lane t's share of occ(c, j) from its 16 bytes w of j's K0 row
-__device__ __forceinline__ uint32_t k0_share(int4 w, uint32_t c, int32_t j) {
-  const int lane = warp_lane();
-  if (lane == 0) {
-    return static_cast<uint32_t>(c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w);
-  }
-  // this lane's 16 symbols are row symbols 16 (lane - 1) .. 16 (lane - 1) + 15;
-  // count those below j % 496 that equal c
-  const int valid = j % kSymsPerRow - (lane - 1) * 16;
-  const uint32_t words[4] = {static_cast<uint32_t>(w.x), static_cast<uint32_t>(w.y),
-                             static_cast<uint32_t>(w.z), static_cast<uint32_t>(w.w)};
-  uint32_t cnt = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      cnt += (4 * k + b < valid && ((words[k] >> (8 * b)) & 0xFFu) == c) ? 1u : 0u;
-    }
-  }
-  return cnt;
-}
-
-// lane t's share of occ(c, j) from its 16 bytes v of j's nibble row
-__device__ __forceinline__ uint32_t nib_share(int4 v, uint32_t c, int32_t j) {
-  const int lane = warp_lane();
-  const uint32_t w[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
-                         static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
-  if (lane == 0) return c == 0 ? w[0] : c == 1 ? w[1] : c == 2 ? w[2] : w[3];
-  const int within = j % kNibPerRow;
-  const int wf = within >> 3;                              // full words below
-  const uint32_t pmask = (1u << (4 * (within & 7))) - 1u;  // 0 when p == 0
-  const uint32_t rep = c * 0x11111111u;
-  uint32_t cnt = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int widx = 4 * (lane - 1) + e;  // symbol word index in the row
-    const uint32_t y = w[e] ^ rep;
-    const uint32_t t = y & 0x77777777u;
-    const uint32_t nz = ~((t + 0x77777777u) | y) & 0x88888888u;
-    const uint32_t mask = widx < wf ? 0xFFFFFFFFu : widx == wf ? pmask : 0u;
-    cnt += static_cast<uint32_t>(__popc(nz & mask));
-  }
-  return cnt;
-}
-
-__device__ __forceinline__ int32_t warp_sum(uint32_t share) {
-  return static_cast<int32_t>(__reduce_add_sync(kFull, share));
-}
-
-// occ(c, j) on every lane of the warp; c (0..3) and j are warp-uniform
-__device__ __forceinline__ int32_t occ_k0_warp(const int4* __restrict__ rows,
-                                               uint32_t c, int32_t j) {
-  return warp_sum(k0_share(load_row<kSymsPerRow>(rows, j), c, j));
-}
-
-__device__ __forceinline__ int32_t occ_nib_warp(const int4* __restrict__ rows,
-                                                uint32_t c, int32_t j) {
-  return warp_sum(nib_share(load_row<kNibPerRow>(rows, j), c, j));
-}
-
-// (occ(c, jlo), occ(c, jhi)): both 16 B loads are issued before either row
-// is counted, so the two row reads are in flight together
-__device__ __forceinline__ int2 occ2_k0_warp(const int4* __restrict__ rows,
-                                             uint32_t c, int32_t jlo,
-                                             int32_t jhi) {
-  const int4 a = load_row<kSymsPerRow>(rows, jlo);
-  const int4 b = load_row<kSymsPerRow>(rows, jhi);
-  return make_int2(warp_sum(k0_share(a, c, jlo)), warp_sum(k0_share(b, c, jhi)));
-}
-
-__device__ __forceinline__ int2 occ2_nib_warp(const int4* __restrict__ rows,
-                                              uint32_t c, int32_t jlo,
-                                              int32_t jhi) {
-  const int4 a = load_row<kNibPerRow>(rows, jlo);
-  const int4 b = load_row<kNibPerRow>(rows, jhi);
-  return make_int2(warp_sum(nib_share(a, c, jlo)), warp_sum(nib_share(b, c, jhi)));
+// the counter of c (0..3) among a row's counter words v (chunk 0)
+__device__ __forceinline__ uint32_t counter_of(int4 v, uint32_t c) {
+  return static_cast<uint32_t>(c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w);
 }
 
 struct K0Layout {
-  static __device__ __forceinline__ int2 occ2(const int4* __restrict__ rows,
-                                              uint32_t c, int32_t lo, int32_t hi) {
-    return occ2_k0_warp(rows, c, lo, hi);
+  static constexpr int kPerRow = kSymsPerRow;
+  static constexpr int kPerChunk = 16;
+  // #{symbols s of the chunk v equal to c with s < below}, or with s >=
+  // below when flip is all ones (below may lie outside [0, 16])
+  static __device__ __forceinline__ uint32_t count(int4 v, uint32_t c,
+                                                   int below, uint32_t flip) {
+    const uint32_t rep = c * 0x01010101u;
+    const uint32_t w[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
+                           static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
+    uint32_t marks = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      marks += __popc(__vcmpeq4(w[k], rep) &
+                      (low_mask(8 * below - 32 * k) ^ flip));
+    }
+    return marks >> 3;  // 8 marks a matching byte
   }
 };
 
 struct NibLayout {
-  static __device__ __forceinline__ int2 occ2(const int4* __restrict__ rows,
-                                              uint32_t c, int32_t lo, int32_t hi) {
-    return occ2_nib_warp(rows, c, lo, hi);
+  static constexpr int kPerRow = kNibPerRow;
+  static constexpr int kPerChunk = 32;
+  static __device__ __forceinline__ uint32_t count(int4 v, uint32_t c,
+                                                   int below, uint32_t flip) {
+    const uint32_t rep = c * 0x11111111u;
+    const uint32_t w[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
+                           static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
+    uint32_t cnt = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t y = w[e] ^ rep;
+      const uint32_t t = y & 0x77777777u;
+      const uint32_t nz = ~((t + 0x77777777u) | y) & 0x88888888u;
+      cnt += __popc(nz & (low_mask(4 * below - 32 * e) ^ flip));
+    }
+    return cnt;
   }
 };
+
+// occ(c, j) on every lane of the warp from row j / per_row's own counters
+// (c and j warp-uniform): lane 0 loads the counters, lane t >= 1 chunk t
+// if it holds a symbol below the position. The standalone entry points are
+// not given the table's row count, so they never count down from a next row.
+template <class Layout>
+__device__ __forceinline__ int32_t occ_warp(const int4* __restrict__ rows,
+                                            uint32_t c, int32_t j) {
+  const int lane = warp_lane();
+  const int32_t b = j / Layout::kPerRow;
+  const int below = j - b * Layout::kPerRow - (lane - 1) * Layout::kPerChunk;
+  int4 v = make_int4(0, 0, 0, 0);
+  if (lane == 0 || below > 0) {
+    v = __ldg(rows + static_cast<int64_t>(b) * kRowChunks + lane);
+  }
+  const uint32_t share =
+      lane == 0 ? counter_of(v, c) : Layout::count(v, c, below, 0u);
+  return static_cast<int32_t>(__reduce_add_sync(kFull, share));
+}
+
+// occ(c, n) on lane c = 0..3 (0 on the other lanes): the last row's
+// counter plus the count of its whole row (the pads past n never count)
+template <class Layout>
+__device__ __forceinline__ int32_t last_row_totals(const int4* __restrict__ rows,
+                                                   int32_t last) {
+  const int lane = warp_lane();
+  const int4 v = __ldg(rows + static_cast<int64_t>(last) * kRowChunks + lane);
+  int32_t total = 0;
+#pragma unroll
+  for (uint32_t c = 0; c < 4; ++c) {
+    const uint32_t share = lane == 0 ? counter_of(v, c)
+                                     : Layout::count(v, c, Layout::kPerChunk, 0u);
+    const int32_t sum = static_cast<int32_t>(__reduce_add_sync(kFull, share));
+    if (lane == static_cast<int>(c)) total = sum;
+  }
+  return total;
+}
+
+// (occ(c, jlo), occ(c, jhi)) on every lane (c, jlo, jhi warp-uniform;
+// `last` = the table's last row, `total` = occ(c, n), the counter its
+// down-count starts from): the nearer-counter count above, one half-warp a
+// position
+template <class Layout>
+__device__ __forceinline__ int2 occ2_warp(const int4* __restrict__ rows,
+                                          uint32_t c, int32_t jlo, int32_t jhi,
+                                          int32_t last, int32_t total) {
+  const int lane = warp_lane();
+  const int hi = lane >> 4;  // this lane's half: 0 counts jlo, 1 jhi
+  const int32_t j = hi ? jhi : jlo;
+  const int32_t b = j / Layout::kPerRow;
+  const int32_t w = j - b * Layout::kPerRow;
+  const bool down = w >= Layout::kPerRow / 2;  // half-uniform
+  const int chunk = (lane & 15) + (down ? 16 : 1);
+  const int below = w - (chunk - 1) * Layout::kPerChunk;
+  // a chunk wholly on the uncounted side issues no load
+  int4 v = make_int4(0, 0, 0, 0);
+  if (down ? below < Layout::kPerChunk : below > 0) {
+    v = __ldg(rows + static_cast<int64_t>(b) * kRowChunks + chunk);
+  }
+  const int32_t next = b + down;  // the row whose counter is read
+  const int32_t word = __ldg(reinterpret_cast<const int32_t*>(rows) +
+                             static_cast<int64_t>(min(next, last)) * kRowWords + c);
+  const int32_t counter = next > last ? total : word;
+  const uint32_t both = __reduce_add_sync(
+      kFull, Layout::count(v, c, below, down ? 0xFFFFFFFFu : 0u) << (16 * hi));
+  const int32_t part = static_cast<int32_t>(hi ? both >> 16 : both & 0xFFFFu);
+  const int32_t mine = down ? counter - part : counter + part;
+  const int32_t other = __shfl_xor_sync(kFull, mine, 16);
+  return hi ? make_int2(other, mine) : make_int2(mine, other);
+}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 rank_rows_kernel(const int4* __restrict__ rows,
@@ -183,7 +216,7 @@ rank_rows_kernel(const int4* __restrict__ rows,
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (q >= nq) return;  // q is uniform across the warp: whole warps exit
   const int32_t occ =
-      occ_k0_warp(rows, static_cast<uint32_t>(chars[q]), positions[q]);
+      occ_warp<K0Layout>(rows, static_cast<uint32_t>(chars[q]), positions[q]);
   if (warp_lane() == 0) out[q] = occ;
 }
 
@@ -196,7 +229,7 @@ rank_rows_nib_kernel(const int4* __restrict__ rows,
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (q >= nq) return;  // q is uniform across the warp: whole warps exit
   const int32_t occ =
-      occ_nib_warp(rows, static_cast<uint32_t>(chars[q]), positions[q]);
+      occ_warp<NibLayout>(rows, static_cast<uint32_t>(chars[q]), positions[q]);
   if (warp_lane() == 0) out[q] = occ;
 }
 
@@ -218,22 +251,21 @@ rank_rows_nib_kernel(const int4* __restrict__ rows,
 // one PSV and one NSV query. From step L on, the column's (l, r - l at
 // depth L) is recorded.
 //
-// What bounds it: not bytes (each input read once is ~70 MB per 4M-position
-// chunk at 5 Mbp: tens of microseconds at 3.35 TB/s) and not the integer
-// work, but chains of dependent reads: each step is one or more round trips
-// to L2 or device memory (a pair of rank rows, then on failure the LCP
-// values and pyramid blocks), and each depends on the last. The lockstep
-// version paid a host round trip and ~30 small launches per inner
-// iteration of the slowest lane. Each lane's evolution depends only on its
-// own (l, r, d) and its characters, so here one warp carries one lane
-// through all its steps, and many warps in flight hide each other's
-// latency. l, r and d are warp-uniform (every branch is taken by the whole
-// warp); every memory read is one coalesced 512 B access (a rank row, or a
-// 128-value pyramid block as one int4 per thread) or a broadcast; a
-// pyramid search is four __ballot_sync masks and __clz / __ffs; the two
-// searches of an expansion issue their loads together, as do the two occ
-// rows. A lane's S query characters come in 32 at a time by one coalesced
-// load and __shfl_sync.
+// What bounds it: not the bytes of the inputs (each read once is ~70 MB per
+// 4M-position chunk at 5 Mbp: tens of microseconds at 3.35 TB/s), but
+// chains of dependent accesses: each step is one or more round trips to L2
+// or device memory (a pair of rank rows, then on failure the LCP values and
+// pyramid blocks), each depending on the last, and the sectors and warp
+// instructions that each costs. Each lane's evolution depends only on its
+// own (l, r, d) and its characters, so one warp carries one lane through
+// all its steps, and many warps in flight hide each other's latency. l, r
+// and d are warp-uniform (every branch is taken by the whole warp). A rank
+// row pair is occ2_warp above. A pyramid block is 128 values, 4 a lane
+// (one int4); a search is one candidate a lane and one __reduce_max_sync
+// (PSV) or __reduce_min_sync (NSV); while ascending, lanes whose 4 values
+// lie wholly on the far side of the position issue no load. The two
+// searches of an expansion issue their loads together. A lane's S query
+// characters come in 32 at a time by one coalesced load and __shfl_sync.
 
 constexpr int kMaxLevels = 8;
 constexpr int kFan = 128;  // pyramid fan-out: one block = 128 values
@@ -245,68 +277,67 @@ struct Pyramid {
   int32_t nlev;
 };
 
-// lane t's values 4t..4t+3 of block `blk` of a level; slots outside
-// [0, size) read INT32_MAX (never below any query value), and no address
-// outside the level is formed
+// lane t's values 4t..4t+3 of block `blk` of a level of `size` (< 2^31)
+// values, if `want`; slots outside [0, size), and every slot of a lane that
+// does not want them, read INT32_MAX (never below any query value), and no
+// address outside the level is formed
 __device__ __forceinline__ int4 load_block(const int32_t* __restrict__ level,
-                                           int64_t size, int64_t blk) {
+                                           int32_t size, int32_t blk,
+                                           bool want) {
   int4 v = make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
-  if (blk < 0) return v;
-  const int64_t e = blk * kFan + 4 * warp_lane();
-  if (e + 3 < size) return __ldg(reinterpret_cast<const int4*>(level + e));
-  if (e < size) v.x = __ldg(level + e);
-  if (e + 1 < size) v.y = __ldg(level + e + 1);
-  if (e + 2 < size) v.z = __ldg(level + e + 2);
+  if (blk < 0 || !want) return v;
+  // unsigned: a block past a level's end may start past 2^31 - 128
+  const uint32_t e = static_cast<uint32_t>(blk) * kFan + 4 * warp_lane();
+  const uint32_t s = static_cast<uint32_t>(size);
+  if (e + 3 < s) return __ldg(reinterpret_cast<const int4*>(level + e));
+  if (e < s) v.x = __ldg(level + e);
+  if (e + 1 < s) v.y = __ldg(level + e + 1);
+  if (e + 2 < s) v.z = __ldg(level + e + 2);
   return v;
 }
 
 // largest k <= upto of the block with x[k] < v, else -1 (warp-uniform)
 __device__ __forceinline__ int last_below(int4 x, int upto, int32_t v) {
   const int k = 4 * warp_lane();
-  const unsigned b0 = __ballot_sync(kFull, k <= upto && x.x < v);
-  const unsigned b1 = __ballot_sync(kFull, k + 1 <= upto && x.y < v);
-  const unsigned b2 = __ballot_sync(kFull, k + 2 <= upto && x.z < v);
-  const unsigned b3 = __ballot_sync(kFull, k + 3 <= upto && x.w < v);
   int best = -1;
-  if (b0) best = max(best, 4 * (31 - __clz(b0)));
-  if (b1) best = max(best, 4 * (31 - __clz(b1)) + 1);
-  if (b2) best = max(best, 4 * (31 - __clz(b2)) + 2);
-  if (b3) best = max(best, 4 * (31 - __clz(b3)) + 3);
-  return best;
+  if (k <= upto && x.x < v) best = k;
+  if (k + 1 <= upto && x.y < v) best = k + 1;
+  if (k + 2 <= upto && x.z < v) best = k + 2;
+  if (k + 3 <= upto && x.w < v) best = k + 3;
+  return __reduce_max_sync(kFull, best);
 }
 
 // smallest k >= from of the block with x[k] < v, else kFan (warp-uniform)
 __device__ __forceinline__ int first_below(int4 x, int from, int32_t v) {
   const int k = 4 * warp_lane();
-  const unsigned b0 = __ballot_sync(kFull, k >= from && x.x < v);
-  const unsigned b1 = __ballot_sync(kFull, k + 1 >= from && x.y < v);
-  const unsigned b2 = __ballot_sync(kFull, k + 2 >= from && x.z < v);
-  const unsigned b3 = __ballot_sync(kFull, k + 3 >= from && x.w < v);
   int best = kFan;
-  if (b0) best = min(best, 4 * (__ffs(b0) - 1));
-  if (b1) best = min(best, 4 * (__ffs(b1) - 1) + 1);
-  if (b2) best = min(best, 4 * (__ffs(b2) - 1) + 2);
-  if (b3) best = min(best, 4 * (__ffs(b3) - 1) + 3);
-  return best;
+  if (k + 3 >= from && x.w < v) best = k + 3;
+  if (k + 2 >= from && x.z < v) best = k + 2;
+  if (k + 1 >= from && x.y < v) best = k + 1;
+  if (k >= from && x.x < v) best = k;
+  return __reduce_min_sync(kFull, best);
 }
 
 // (l, r) <- (psv(l, v), nsv(r, v)): the enclosing SA range at depth >= v.
 // Each search ascends until the part of its level's block on its side of
 // the position holds a value < v, then descends to the exact index, as
 // lcp_search.py does; an unresolved search (impossible with the sentinels
-// at 0 and n) answers 0 as the plain version does.
+// at 0 and n) answers 0 as the plain version does. Every index is below
+// n + 1 < 2^31 (the wrapper checks n).
 __device__ __forceinline__ void expand_warp(const Pyramid& p, int32_t& l,
                                             int32_t& r, int32_t v) {
-  int64_t pl = l, pr = r;        // position examined at the current level
+  const int k = 4 * warp_lane();
+  int32_t pl = l, pr = r;        // position examined at the current level
   int fl = -1, fr = -1;          // level of the hit, -1 while unresolved
-  int64_t hl = 0, hr = 0;        // index of the hit at that level
+  int32_t hl = 0, hr = 0;        // index of the hit at that level
   for (int t = 0; t < p.nlev && (fl < 0 || fr < 0); ++t) {
-    const int64_t bl = pl >> 7, br = pr >> 7;  // floor division by kFan
-    int4 xl = make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX), xr = xl;
-    if (fl < 0) xl = load_block(p.level[t], p.size[t], bl);
-    if (fr < 0) xr = load_block(p.level[t], p.size[t], br);
+    const int32_t size = static_cast<int32_t>(p.size[t]);
+    const int32_t bl = pl >> 7, br = pr >> 7;  // floor division by kFan
+    const int upto = pl & (kFan - 1), from = pr & (kFan - 1);
+    const int4 xl = load_block(p.level[t], size, bl, fl < 0 && k <= upto);
+    const int4 xr = load_block(p.level[t], size, br, fr < 0 && k + 3 >= from);
     if (fl < 0) {
-      const int cand = last_below(xl, static_cast<int>(pl & (kFan - 1)), v);
+      const int cand = last_below(xl, upto, v);
       if (cand >= 0) {
         fl = t;
         hl = bl * kFan + cand;
@@ -314,7 +345,7 @@ __device__ __forceinline__ void expand_warp(const Pyramid& p, int32_t& l,
       pl = bl - 1;  // the next level examines strictly-left blocks
     }
     if (fr < 0) {
-      const int cand = first_below(xr, static_cast<int>(pr & (kFan - 1)), v);
+      const int cand = first_below(xr, from, v);
       if (cand < kFan) {
         fr = t;
         hr = br * kFan + cand;
@@ -325,14 +356,14 @@ __device__ __forceinline__ void expand_warp(const Pyramid& p, int32_t& l,
   // a hit at level t names a block at level t - 1, and so on down
   for (int t = max(fl, fr); t >= 1; --t) {
     const bool dl = fl >= t, dr = fr >= t;
-    int4 xl = make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX), xr = xl;
-    if (dl) xl = load_block(p.level[t - 1], p.size[t - 1], hl);
-    if (dr) xr = load_block(p.level[t - 1], p.size[t - 1], hr);
+    const int32_t size = static_cast<int32_t>(p.size[t - 1]);
+    const int4 xl = load_block(p.level[t - 1], size, hl, dl);
+    const int4 xr = load_block(p.level[t - 1], size, hr, dr);
     if (dl) hl = hl * kFan + last_below(xl, kFan - 1, v);
     if (dr) hr = hr * kFan + first_below(xr, 0, v);
   }
-  l = static_cast<int32_t>(hl);
-  r = static_cast<int32_t>(hr);
+  l = hl;
+  r = hr;
 }
 
 template <class Layout>
@@ -348,6 +379,8 @@ scan_lanes_kernel(const int4* __restrict__ rows,
   if (g >= nlanes) return;  // g is uniform across the warp: whole warps exit
   const int32_t cbase = lane < 4 ? __ldg(counts + lane) : 0;  // C[lane]
   const int32_t* __restrict__ lcp = pyr.level[0];
+  const int32_t last = n / Layout::kPerRow;  // the table's last row
+  const int32_t totals = last_row_totals<Layout>(rows, last);  // occ(lane, n)
   const int64_t start = g * B;
   const int S = B + L;
   int32_t l = 0, r = n, d = 0;
@@ -367,11 +400,13 @@ scan_lanes_kernel(const int4* __restrict__ rows,
       expand_warp(pyr, l, r, L - 1);
       d = L - 1;
     }
+    // C[c] and occ(c, n), once a step (unused when c >= 4)
+    const int32_t base = __shfl_sync(kFull, cbase, c);
+    const int32_t total = __shfl_sync(kFull, totals, c);
     for (;;) {
       if (c < 4) {  // c >= 4 fails without a row read: ok needs c < 4
-        const int2 o = Layout::occ2(rows, c, l, r);
-        const int32_t base = __shfl_sync(kFull, cbase, c);
-        if (base + o.x < base + o.y) {
+        const int2 o = occ2_warp<Layout>(rows, c, l, r, last, total);
+        if (o.x < o.y) {
           l = base + o.x;
           r = base + o.y;
           ++d;

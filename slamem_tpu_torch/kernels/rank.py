@@ -19,7 +19,8 @@ file) and their plain PyTorch versions ``rank_rows_plain`` /
 ``rank_rows_nib_plain`` on CPU tensors; neither falls back from one to the
 other. ``scan_lanes`` launches the scan kernel (one warp per scan lane,
 the whole capped backward search of ``engine/scan_mode.py::_scan_lanes``
-with the same occ device functions inside) on either layout. The library
+with the same row counts inside, each occ pair counted from the nearer of
+two row counters) on either layout. The library
 is compiled by ``nvcc`` for sm_90a at first use, from the source in this
 package, into ``kernels/build/`` (git-ignored), and loaded with ctypes
 through plain C entry points. Nothing is built or imported for it when

@@ -173,6 +173,64 @@ def test_scan_lanes_equals_plain_loop(cuda, n, layout, L, lane_block):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
+@pytest.mark.parametrize("layout", ["k0", "nib"])
+def test_scan_kernel_row_halves_and_last_row(cuda, layout):
+    """The scan kernel == the plain loop on a reference whose n lies in the
+    upper half of both tables' last row (n % 992 = 800, n % 496 = 304),
+    under a pyramid of 3 levels, with a query of two strains, N runs and
+    separators; the plain loop's trace shows that the kernel's occ pairs
+    met every row-edge class of the nearer-counter count: w = 0, w =
+    per_row / 2 - 1 (the last position counted up), per_row / 2 (the
+    first counted down), per_row - 1, and j = n (the last row, counted
+    down from occ(c, n))."""
+    ref = with_n_runs(random_genome(252 * rank.NIB_PER_ROW + 799, seed=180),
+                      3, 40, seed=181)
+    idx = build_index(ref, device=cuda)
+    assert idx.n % rank.NIB_PER_ROW == 800
+    parts = [with_n_runs(mutate(ref, 0.01 * k, 0.001 * k, seed=182 + k), 3,
+                         25, seed=190 + k)[20_000 * k:20_000 * k + 30_000]
+             for k in (1, 2)]
+    qry = np.concatenate([parts[0], [CODE_SEP], parts[1]]).astype(np.uint8)
+    rows = (rank.nibble_rows if layout == "nib" else
+            rank.interleaved_rows)(idx)
+    pyr = scan_mode.get_pyramid(idx)
+    assert len(pyr.levels) >= 3
+    qt = torch.from_numpy(qry).to(cuda)
+    _reset_launches()
+    got = rank.scan_lanes(rows, layout, idx.counts, pyr, qt, 20, 256)
+    torch.cuda.synchronize()
+    assert rank.scan_lanes.launches[layout] == 1
+    plain = rank.rank_rows_nib_plain if layout == "nib" else \
+        rank.rank_rows_plain
+    trace = scan_mode.ScanTrace()
+    want = scan_mode._scan_lanes(idx, pyr, lambda c, p: plain(rows, c, p),
+                                 qt, 20, 256, trace)
+    j = torch.cat([o.reshape(-1) for o in trace.occ])
+    per_row = rank.SCAN_LAYOUTS[layout]
+    w = j % per_row
+    for edge in (0, per_row // 2 - 1, per_row // 2, per_row - 1):
+        assert bool((w == edge).any()), edge
+    assert bool((j == idx.n).any())
+    assert int((want[1] > 0).sum()) > len(qry) // 4
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("layout", ["k0", "nib"])
+def test_scan_kernel_all_n_query(cuda, layout):
+    """An all-N query: no row read, no match; the kernel == the plain
+    loop (every width 0)."""
+    idx = build_index(random_genome(30_000, seed=183), device=cuda)
+    rows = (rank.nibble_rows if layout == "nib" else
+            rank.interleaved_rows)(idx)
+    pyr = scan_mode.get_pyramid(idx)
+    qt = torch.full((5_000,), 4, dtype=torch.uint8, device=cuda)
+    got = rank.scan_lanes(rows, layout, idx.counts, pyr, qt, 20, 256)
+    want = scan_mode.scan_lanes_plain(rows, layout, idx.counts, pyr, qt, 20,
+                                      256)
+    assert int(want[1].abs().sum()) == 0
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
 # plane lengths around the dense pass's word (4 bytes), warp (128 words)
 # and block (1,024 words) edges, with the tail from m_real = 4 nb - 7
 _NB_RESIDUES = [(nb, min(7, 4 * nb), side)

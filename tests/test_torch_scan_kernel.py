@@ -3,8 +3,11 @@
 
 A serial numpy model of the kernel runs one lane at a time: it skips steps
 that are not live, expands only at the depth cap, skips the occ read when
-c >= 4, and searches the PSV/NSV pyramid as the kernel does, by four 32-bit
-ballot masks per 128-value block and their highest / lowest set bit. It is
+c >= 4, and searches the PSV/NSV pyramid as the kernel does: each of 32
+warp lanes holds 4 values of a 128-value block (while ascending, a lane
+whose 4 values lie wholly on the far side of the position loads none and
+holds INT32_MAX), reduces them to one candidate index, and one warp
+maximum (PSV) or minimum (NSV) of the candidates gives the answer. It is
 held to the JAX ``_scan_lanes`` (``rank_kernel="xla"`` and ``"nib"``) and
 to the port's lockstep ``_scan_lanes``, and through them to the port's
 routing. Tolerance: exact, on the FULL ``lo`` and ``width`` arrays (not only
@@ -51,50 +54,42 @@ class SerialScan:
         self.levels = [np.asarray(lv).astype(np.int64) for lv in pyr.levels]
         self.levels_climbed = 0
 
-    def _block(self, t, blk):
-        """128 values of block ``blk`` of level t, INT32_MAX outside it."""
+    def _block(self, t, blk, want):
+        """(32, 4): lane k's values 4k..4k+3 of block ``blk`` of level t,
+        INT32_MAX outside the level and in the lanes that do not ``want``
+        (32,) to load."""
         out = np.full(F, I32MAX, np.int64)
-        if blk < 0:
-            return out
-        lv = self.levels[t]
-        lo = blk * F
-        take = lv[lo:lo + F]
-        out[:take.size] = take
-        return out
+        if blk >= 0:
+            take = self.levels[t][blk * F:blk * F + F]
+            out[:take.size] = take
+        return np.where(want[:, None], out.reshape(32, 4), I32MAX)
 
     @staticmethod
-    def _ballots(hit):
-        """Four warp ballots: bit t of mask k = hit[4t + k]."""
-        bits = hit.reshape(32, 4)
-        return [int(sum(1 << t for t in range(32) if bits[t, k]))
-                for k in range(4)]
+    def _last_below(x, upto, v):
+        """Each lane's largest k <= upto of its 4 with x[k] < v (else -1),
+        then the warp maximum (``__reduce_max_sync``)."""
+        k = 4 * np.arange(32)[:, None] + np.arange(4)[None, :]
+        return int(np.where((k <= upto) & (x < v), k, -1).max(1).max())
 
     @staticmethod
-    def _highest(masks):
-        best = -1
-        for k, b in enumerate(masks):
-            if b:
-                best = max(best, 4 * (b.bit_length() - 1) + k)
-        return best
-
-    @staticmethod
-    def _lowest(masks):
-        best = F
-        for k, b in enumerate(masks):
-            if b:
-                best = min(best, 4 * ((b & -b).bit_length() - 1) + k)
-        return best
+    def _first_below(x, frm, v):
+        """Each lane's smallest k >= frm with x[k] < v (else 128), then the
+        warp minimum (``__reduce_min_sync``)."""
+        k = 4 * np.arange(32)[:, None] + np.arange(4)[None, :]
+        return int(np.where((k >= frm) & (x < v), k, F).min(1).min())
 
     def _search(self, j, v, left):
-        idx = np.arange(F)
+        k = 4 * np.arange(32)
+        every = np.ones(32, bool)
         pos, found, hit = j, -1, 0
         for t in range(len(self.levels)):       # ascend until a block hits
             blk = pos // F
             off = pos - blk * F
-            vals = self._block(t, blk)
-            side = idx <= off if left else idx >= off
-            masks = self._ballots((vals < v) & side)
-            cand = self._highest(masks) if left else self._lowest(masks)
+            if left:        # lanes wholly right of the position load nothing
+                cand = self._last_below(self._block(t, blk, k <= off), off, v)
+            else:
+                cand = self._first_below(self._block(t, blk, k + 3 >= off),
+                                         off, v)
             if (cand >= 0) if left else (cand < F):
                 found, hit = t, blk * F + cand
                 break
@@ -103,9 +98,9 @@ class SerialScan:
             return 0
         self.levels_climbed += found > 0
         for t in range(found, 0, -1):           # descend to the exact index
-            masks = self._ballots(self._block(t - 1, hit) < v)
-            hit = hit * F + (self._highest(masks) if left
-                             else self._lowest(masks))
+            x = self._block(t - 1, hit, every)
+            hit = hit * F + (self._last_below(x, F - 1, v) if left
+                             else self._first_below(x, 0, v))
         return hit
 
     def _expand(self, l, r, v):
