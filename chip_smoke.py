@@ -39,7 +39,9 @@ Phases, each of which raises on failure (exit status non-zero):
          (scan_mode._scan_lanes with the layout's plain occ) on the card:
          lo and width exactly equal; kernel time by CUDA events after a
          warm-up, the plain run's time and its count of backward-extend
-         attempts and expansions, the bound, the sectors the kernel
+         attempts and expansions, the bound (its operations on the symbol
+         words each occ needs from its nearer counter) with the first
+         design's whole-row bound beside it, the sectors the kernel
          touches (counted from the plain run's trace of positions, for
          the whole-row design and this one) with their bound, and a latency
          estimate;
@@ -253,6 +255,17 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _turns(fns: dict, reps: int) -> dict:
+    """Mean device times (ms) of each of ``fns`` in turns: every one, then
+    every one again in reverse order; the mean of the two."""
+    got = {name: [] for name in fns}
+    order = list(fns)
+    for names in (order, order[::-1]):
+        for name in names:
+            got[name].append(_cuda_ms(fns[name], reps))
+    return {name: sum(v) / len(v) for name, v in got.items()}
+
+
 def _kernel_vs_plain(rank, name: str, rows, chars, positions,
                      label: str) -> dict:
     """Exact check of a rank wrapper (``rank_rows`` or ``rank_rows_nib``)
@@ -323,6 +336,19 @@ def _row_sectors(j, per_row: int, per_chunk: int):
     down = w >= per_row // 2
     up = (w + per_chunk - 1) // per_chunk // 2 + 1
     return torch.where(down, 16 - (w // per_chunk + 1) // 2 + 1, up)
+
+
+def _row_words(j, per_row: int, words: int):
+    """Symbol words of a rank row that the nearer-counter count needs at
+    each position j (int64): those holding the symbols below w = j %
+    per_row (w in the row's lower half), or those holding [w, per_row)
+    (upper half), as ``_row_sectors`` splits the row."""
+    import torch
+
+    per_word = per_row // words
+    w = j % per_row
+    return torch.where(w >= per_row // 2, words - w // per_word,
+                       (w + per_word - 1) // per_word)
 
 
 def _pyramid_sectors(pyr, exp, batch: int = 1 << 17) -> tuple[int, int]:
@@ -398,7 +424,8 @@ def _scan_sectors(rank, trace, pyr, layout: str, m: int) -> dict:
     design (16 a rank row, whole pyramid blocks) and this one (the
     nearer-counter chunks, the ascent's side of each block): rank rows (2
     an attempt that reads them), pyramid blocks, LCP values (2 a
-    shortening) and the query and output streams (9 B a position)."""
+    shortening) and the query and output streams (9 B a position); and
+    the symbol words the nearer-counter counts need (``_row_words``)."""
     import torch
 
     per_row = rank.SCAN_LAYOUTS[layout]
@@ -406,13 +433,15 @@ def _scan_sectors(rank, trace, pyr, layout: str, m: int) -> dict:
     j = torch.cat([o.reshape(-1) for o in trace.occ]).to(torch.int64)
     exp = torch.cat(trace.expand, dim=1)
     rows_new = int(_row_sectors(j, per_row, per_chunk).sum())
+    row_words = int(_row_words(j, per_row,
+                               rank.ROW_WORDS - rank.CNT_WORDS).sum())
     blocks_old, blocks_new = _pyramid_sectors(pyr, exp)
     lcp = 2 * int(exp[3].sum())
     stream = -(-9 * m // 32)
     res = {"row_reads": j.numel(), "expansions": exp.shape[1],
            "rows_old": 16 * j.numel(), "rows_new": rows_new,
            "blocks_old": blocks_old, "blocks_new": blocks_new,
-           "lcp": lcp, "stream": stream}
+           "lcp": lcp, "stream": stream, "row_words": row_words}
     res["old"] = res["rows_old"] + blocks_old + lcp + stream
     res["new"] = rows_new + blocks_new + lcp + stream
     return res
@@ -425,7 +454,9 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
     exact; kernel time by CUDA events after a warm-up; the plain run's
     time, backward-extend attempts and expansions (its trace); the bound
     (bytes: tables, pyramid, query, 8 B out per position, each once; ops:
-    the rank-row integer work of the attempts), the sectors touched
+    the integer work on the symbol words each occ of the trace needs from
+    its nearer counter), the first design's whole-row bound (ops: two
+    whole rows an attempt) beside it, the sectors touched
     (``_scan_sectors``) at the memory rate, and a latency estimate
     (dependent round trips per warp slot)."""
     import torch
@@ -469,10 +500,13 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
     per_slot = round_trips / slots
     bound_bytes = (rows.numel() * 4 + sum(lv.numel() * 4 for lv in pyr.levels)
                    + m + 16 + 8 * m)
-    words = rank.ROW_WORDS - rank.CNT_WORDS
-    bound_ops = total * 2 * words * (8 if layout == "nib" else 16)
+    # per symbol word: nib 8 ops, K0 16 (as _kernel_vs_plain)
+    per_word = 8 if layout == "nib" else 16
+    bound_ops = sectors["row_words"] * per_word
+    whole_row_ops = total * 2 * (rank.ROW_WORDS - rank.CNT_WORDS) * per_word
     bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    whole_row_ms = max(bytes_ms, whole_row_ops / SCALAR_OPS_PER_S * 1e3)
     sector_ms = {k: sectors[k] * 32 / HBM_BYTES_PER_S * 1e3
                  for k in ("old", "new")}
     res = {"positions": m, "lanes": lanes, "live_steps": live_steps,
@@ -485,13 +519,16 @@ def _scan_kernel_vs_plain(rank, scan_mode, index, qt, layout: str, L: int,
            "latency_est_ms": per_slot * ROUND_TRIP_US / 1e3,
            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
            "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "whole_row_bound_ms": whole_row_ms}
     _log(f"[scan 2s] scan_lanes {layout}: {m} positions, {lanes} lanes, "
          f"{live_steps} live steps, {total} attempts, "
          f"{sectors['expansions']} expansions; kernel {ms:.6f} ms, plain "
          f"loop {plain_ms:.3f} ms (with the trace); bound "
          f"{res['bound_ms']:.6f} ms (bytes {bound_bytes}: {bytes_ms:.6f} ms,"
-         f" ops {bound_ops}: {ops_ms:.6f} ms); sectors touched "
+         f" ops {bound_ops} on {sectors['row_words']} nearer-side words: "
+         f"{ops_ms:.6f} ms); whole-row bound {whole_row_ms:.6f} ms (ops "
+         f"{whole_row_ops}); sectors touched "
          f"{sectors['new']} (rank rows {sectors['rows_new']}, pyramid blocks "
          f"{sectors['blocks_new']}, LCP {sectors['lcp']}, query and output "
          f"{sectors['stream']}): sector bound {sector_ms['new']:.6f} ms; "
@@ -2199,7 +2236,8 @@ def run() -> int:
     for layout, c in scans.items():
         _log(f"[scan 2s] scan_lanes_{layout}: one 4M chunk {c['ms']:.6f} ms "
              f"vs plain loop {c['plain_ms']:.3f} ms; bound "
-             f"{c['bound_ms']:.6f} ms ({c['bound_by']}), latency estimate "
+             f"{c['bound_ms']:.6f} ms ({c['bound_by']}; whole rows "
+             f"{c['whole_row_bound_ms']:.6f} ms), latency estimate "
              f"{c['latency_est_ms']:.6f} ms; {smi}")
     source = "slamem_tpu_torch/kernels/csrc/rank.cu"
     scan_tpu = "slamem_tpu/engine/scan_mode.py:90"
@@ -2233,6 +2271,7 @@ def run() -> int:
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
+            "whole_row_bound_ms": c["whole_row_bound_ms"],
             "library_ms": None})   # no PyTorch call runs a backward search
     # the unpack kernel at the 6a / 5d query's shape (phase u); launches:
     # 5a's two uploads

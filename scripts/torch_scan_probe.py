@@ -140,17 +140,6 @@ class _Yardsticks:
         return run
 
 
-def _turns(fns: dict, reps: int) -> dict:
-    """Times of each launcher in turns: every one, then every one again in
-    reverse order; the mean of the two."""
-    got = {name: [] for name in fns}
-    order = list(fns)
-    for names in (order, order[::-1]):
-        for name in names:
-            got[name].append(chip_smoke._cuda_ms(fns[name], reps))
-    return {name: sum(v) / len(v) for name, v in got.items()}
-
-
 def _chunk(label: str, builds: list, yard: _Yardsticks, ref, qry, L: int,
            reps: int) -> dict:
     index = build_index(ref, device="cuda")
@@ -194,10 +183,10 @@ def _chunk(label: str, builds: list, yard: _Yardsticks, ref, qry, L: int,
                 raise AssertionError(f"{label} {layout}: {b.label}'s kernel "
                                      "!= the plain loop")
             runs[b.label] = run
-        times = _turns(runs, reps)
-        yards = _turns({"whole rows": yard.launcher(rows, pos, layout, False),
-                        "sectors": yard.launcher(rows, pos, layout, True)},
-                       reps)
+        times = chip_smoke._turns(runs, reps)
+        yards = chip_smoke._turns(
+            {"whole rows": yard.launcher(rows, pos, layout, False),
+             "sectors": yard.launcher(rows, pos, layout, True)}, reps)
         sectors = chip_smoke._scan_sectors(rank, trace, pyr, layout, m)
         attrs = {b.label: b.attrs(layout) for b in builds}
         res[layout] = {"ms": times, "yardstick_ms": yards, "attrs": attrs,

@@ -39,6 +39,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
+import chip_smoke  # noqa: E402
 from slamem_tpu_torch.dist import sharded  # noqa: E402
 from slamem_tpu_torch.engine import seed_mode  # noqa: E402
 from slamem_tpu_torch.index.build import build_index  # noqa: E402
@@ -64,19 +65,6 @@ _STORES = {
 
 def _log(msg: str) -> None:
     print(f"[probe] {msg}", flush=True)
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _without_stores(src: Path, out: Path) -> Path:
@@ -179,17 +167,6 @@ class _Lib:
         return run
 
 
-def _turns(fns: dict, reps: int) -> dict:
-    """Times of each launcher in turns: every one, then every one again in
-    reverse order; the mean of the two."""
-    got = {name: [] for name in fns}
-    order = list(fns)
-    for names in (order, order[::-1]):
-        for name in names:
-            got[name].append(_cuda_ms(fns[name], reps))
-    return {name: sum(v) / len(v) for name, v in got.items()}
-
-
 def _index(n: int, seed: int):
     """The port's index of n - 1 random codes (build_index appends the
     separator that ends the text)."""
@@ -219,7 +196,7 @@ def _seed_tables(libs, label, index, k, reps) -> tuple[dict, object]:
             runs[f"{lib.label} {part}"] = fn
     refk = want[0]
     del want
-    res = _turns(runs, reps)
+    res = chip_smoke._turns(runs, reps)
     rows = sa.numel()
     res["bound_ms"] = (16 * rows + text.numel()) / 3.35e12 * 1e3
     _log(f"{label} seed table, {rows} rows, K {k}: " + ", ".join(
@@ -253,7 +230,7 @@ def _buckets(libs, label, slabs, k, bbits, shift, reps) -> dict:
             rows[:max(0, min(rows.numel(), real))].sum()
             out.fill_(0)
     runs["yardstick"] = yardstick
-    res = _turns(runs, reps)
+    res = chip_smoke._turns(runs, reps)
     real_rows = sum(min(r.numel(), max(m, 0)) for r, _, m in slabs)
     res["bound_ms"] = ((8 * real_rows + 4 * len(slabs) * (nb + 1))
                        / 3.35e12 * 1e3)
@@ -281,7 +258,7 @@ def _sweep(libs, sizes, k, reps) -> dict:
             runs[lib.label] = run
             if "gather" in parts:
                 runs[lib.label + " gather"] = parts["gather"]
-        res = _turns(runs, reps)
+        res = chip_smoke._turns(runs, reps)
         out[f"{mcodes}M"] = {name: ms * 1e6 / n for name, ms in res.items()}
         _log(f"sweep {mcodes}M codes (plane {n / 4e6:.1f} MB), K {k}, ns a "
              "row: " + ", ".join(f"{name} {v:.4f}"

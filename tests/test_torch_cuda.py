@@ -144,19 +144,50 @@ def test_plain_rank_kernels_run_the_lockstep_loop_on_cuda(cuda, rank_kernel):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("L,lane_block", [(20, 256), (12, 64), (33, 32)])
-@pytest.mark.parametrize("layout", ["k0", "nib"])
-@pytest.mark.parametrize("n", [30_000, 250_000])
-def test_scan_lanes_equals_plain_loop(cuda, n, layout, L, lane_block):
-    """The scan kernel == the lockstep loop with the plain occ on the card,
-    full lo and width arrays, on a multi-FASTA query joined by separators
-    with N runs."""
+# the row-edge case's reference: n % 992 = 800 and n % 496 = 304, in the
+# upper half of both tables' last row
+_ROW_EDGE_N = 252 * rank.NIB_PER_ROW + 799
+_SCAN_CASES = ([("strains", n, L, lane_block) for n in (30_000, 250_000)
+                for L, lane_block in ((20, 256), (12, 64), (33, 32))]
+               + [("row_edges", _ROW_EDGE_N, 20, 256),
+                  ("all_n", 30_000, 20, 256)])
+
+
+def _scan_inputs(case: str, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(reference, query) of a scan kernel case: "strains", a multi-FASTA
+    query of one strain joined by separators, with N runs; "row_edges", a
+    query of two strains with N runs and a separator; "all_n", a query of
+    N only."""
+    if case == "all_n":
+        return random_genome(n, seed=183), np.full(5_000, 4, np.uint8)
+    if case == "row_edges":
+        ref = with_n_runs(random_genome(n, seed=180), 3, 40, seed=181)
+        parts = [with_n_runs(mutate(ref, 0.01 * k, 0.001 * k, seed=182 + k),
+                             3, 25, seed=190 + k)[20_000 * k:20_000 * k
+                                                  + 30_000]
+                 for k in (1, 2)]
+        return ref, np.concatenate([parts[0], [CODE_SEP],
+                                    parts[1]]).astype(np.uint8)
     ref = with_n_runs(random_genome(n, seed=173), 3, 40, seed=174)
     mut = with_n_runs(mutate(ref, 0.015, 0.0015, seed=175), 4, 30, seed=176)
     cut = [0, n // 3, n // 3 + 50, n // 2, n - 1000]
-    qry = np.concatenate([mut[cut[0]:cut[1]], [CODE_SEP],
-                          mut[cut[2]:cut[3]], [CODE_SEP],
-                          mut[cut[4]:]]).astype(np.uint8)
+    return ref, np.concatenate([mut[cut[0]:cut[1]], [CODE_SEP],
+                                mut[cut[2]:cut[3]], [CODE_SEP],
+                                mut[cut[4]:]]).astype(np.uint8)
+
+
+@pytest.mark.parametrize("case,n,L,lane_block", _SCAN_CASES)
+@pytest.mark.parametrize("layout", ["k0", "nib"])
+def test_scan_lanes_equals_plain_loop(cuda, case, n, layout, L, lane_block):
+    """The scan kernel == the lockstep loop with the plain occ on the card,
+    full lo and width arrays, one launch and no standalone rank launch.
+    In the row-edge case (a pyramid of 3 levels) the plain loop's trace
+    shows that the kernel's occ pairs met every row-edge class of the
+    nearer-counter count: w = 0, w = per_row / 2 - 1 (the last position
+    counted up), per_row / 2 (the first counted down), per_row - 1, and
+    j = n (the last row, counted down from occ(c, n)). An all-N query
+    reads no row and matches nothing (every width 0)."""
+    ref, qry = _scan_inputs(case, n)
     idx = build_index(ref, device=cuda)
     rows = (rank.nibble_rows if layout == "nib" else
             rank.interleaved_rows)(idx)
@@ -166,68 +197,25 @@ def test_scan_lanes_equals_plain_loop(cuda, n, layout, L, lane_block):
     got = rank.scan_lanes(rows, layout, idx.counts, pyr, qt, L, lane_block)
     torch.cuda.synchronize()
     assert rank.scan_lanes.launches[layout] == 1
-    want = scan_mode.scan_lanes_plain(rows, layout, idx.counts, pyr, qt, L,
-                                      lane_block)
-    assert rank.rank_rows.launches + rank.rank_rows_nib.launches == 0
-    assert int((want[1] > 0).sum()) > len(qry) // 4
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-
-
-@pytest.mark.parametrize("layout", ["k0", "nib"])
-def test_scan_kernel_row_halves_and_last_row(cuda, layout):
-    """The scan kernel == the plain loop on a reference whose n lies in the
-    upper half of both tables' last row (n % 992 = 800, n % 496 = 304),
-    under a pyramid of 3 levels, with a query of two strains, N runs and
-    separators; the plain loop's trace shows that the kernel's occ pairs
-    met every row-edge class of the nearer-counter count: w = 0, w =
-    per_row / 2 - 1 (the last position counted up), per_row / 2 (the
-    first counted down), per_row - 1, and j = n (the last row, counted
-    down from occ(c, n))."""
-    ref = with_n_runs(random_genome(252 * rank.NIB_PER_ROW + 799, seed=180),
-                      3, 40, seed=181)
-    idx = build_index(ref, device=cuda)
-    assert idx.n % rank.NIB_PER_ROW == 800
-    parts = [with_n_runs(mutate(ref, 0.01 * k, 0.001 * k, seed=182 + k), 3,
-                         25, seed=190 + k)[20_000 * k:20_000 * k + 30_000]
-             for k in (1, 2)]
-    qry = np.concatenate([parts[0], [CODE_SEP], parts[1]]).astype(np.uint8)
-    rows = (rank.nibble_rows if layout == "nib" else
-            rank.interleaved_rows)(idx)
-    pyr = scan_mode.get_pyramid(idx)
-    assert len(pyr.levels) >= 3
-    qt = torch.from_numpy(qry).to(cuda)
-    _reset_launches()
-    got = rank.scan_lanes(rows, layout, idx.counts, pyr, qt, 20, 256)
-    torch.cuda.synchronize()
-    assert rank.scan_lanes.launches[layout] == 1
     plain = rank.rank_rows_nib_plain if layout == "nib" else \
         rank.rank_rows_plain
     trace = scan_mode.ScanTrace()
     want = scan_mode._scan_lanes(idx, pyr, lambda c, p: plain(rows, c, p),
-                                 qt, 20, 256, trace)
-    j = torch.cat([o.reshape(-1) for o in trace.occ])
-    per_row = rank.SCAN_LAYOUTS[layout]
-    w = j % per_row
-    for edge in (0, per_row // 2 - 1, per_row // 2, per_row - 1):
-        assert bool((w == edge).any()), edge
-    assert bool((j == idx.n).any())
-    assert int((want[1] > 0).sum()) > len(qry) // 4
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-
-
-@pytest.mark.parametrize("layout", ["k0", "nib"])
-def test_scan_kernel_all_n_query(cuda, layout):
-    """An all-N query: no row read, no match; the kernel == the plain
-    loop (every width 0)."""
-    idx = build_index(random_genome(30_000, seed=183), device=cuda)
-    rows = (rank.nibble_rows if layout == "nib" else
-            rank.interleaved_rows)(idx)
-    pyr = scan_mode.get_pyramid(idx)
-    qt = torch.full((5_000,), 4, dtype=torch.uint8, device=cuda)
-    got = rank.scan_lanes(rows, layout, idx.counts, pyr, qt, 20, 256)
-    want = scan_mode.scan_lanes_plain(rows, layout, idx.counts, pyr, qt, 20,
-                                      256)
-    assert int(want[1].abs().sum()) == 0
+                                 qt, L, lane_block, trace)
+    assert rank.rank_rows.launches + rank.rank_rows_nib.launches == 0
+    if case == "all_n":
+        assert int(want[1].abs().sum()) == 0
+        assert sum(o.numel() for o in trace.occ) == 0
+    else:
+        assert int((want[1] > 0).sum()) > len(qry) // 4
+    if case == "row_edges":
+        assert idx.n % rank.NIB_PER_ROW == 800 and len(pyr.levels) >= 3
+        j = torch.cat([o.reshape(-1) for o in trace.occ])
+        per_row = rank.SCAN_LAYOUTS[layout]
+        w = j % per_row
+        for edge in (0, per_row // 2 - 1, per_row // 2, per_row - 1):
+            assert bool((w == edge).any()), edge
+        assert bool((j == idx.n).any())
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
