@@ -17,6 +17,22 @@ Phases, each of which raises on failure (exit status non-zero):
      the 5 Mbp headline reference's table with >= 4M random (c, j) queries
      plus the row-edge positions, at the old scan batch shape (32,768
      queries), and on a random 200 M-symbol table larger than L2;
+     2w. the index-level drop-ins for rank_batch, each == rank_batch
+         exactly, on the headline index (phase 2's random queries in
+         [0, n] plus every row edge of every table below) and on an index
+         over phase 2's 200 M-symbol BWT (its random queries): rank_nib
+         at 128, 512, 2048, 4096 and 130 words a row (128: the 128-word
+         nibble kernel; the other widths: the any-width kernel, one launch
+         a call), rank_pallas (K0) and rank_xla (the plain row gather, no
+         kernel); the launches of that run are counted; then each kernel
+         == its plain version, timed by CUDA events (raw launch; plain)
+         with its bound (bytes: the distinct 32-byte sectors under each
+         query's counter word and the symbol words below its position,
+         chars, positions and out; operations: 8 a counted nibble word,
+         16 a K0 word); backward_step on the card over 4,096 random
+         20-mers of the headline reference == the same steps on a CPU copy
+         of the index, every 20-mer found; and examples/demo_torch.py
+         run on the card (its save/load and 4-slab listings identical);
      u. the 2-bit packed upload wire (utils/pack2.py) at config #5's
         sizes, numpy codes from a seed: its 250,000,000-code reference
         (an N run, separators) and a 50 Mbp query of 10 entries padded to
@@ -173,12 +189,13 @@ Phases, each of which raises on failure (exit status non-zero):
      wrapper, the plain version and its core alone by CUDA events, the
      bound from the runs' bytes and the sector bound (40 B a run + the
      32-byte sectors under its four windows).
-Phases run in the order 1, 2, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c, 7d,
-5a, 9a, 7a, 5b, 5d, t (5 Mbp), 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b,
+Phases run in the order 1, 2, 2w, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c,
+7d, 5a, 9a, 7a, 5b, 5d, t (5 Mbp), 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b,
 9b, t (config #5), e. Prints the card and its power limit (nvidia-smi), a
 ``{"kernels": [...]}`` line (each kernel's launches on its path,
 exactness, time, plain time and lower bound; the standalone rank kernels'
-path is the scan kernel that runs their device function; the unpack,
+path is the scan kernel that runs their device function, the any-width
+nibble kernel's is 2w's rank_nib calls; the unpack,
 extension and table kernels' launches are 5a's, their times phase u's at
 the query shape, phase e's at 6a's runs and phase t's at 6a's shapes),
 and last ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -322,6 +339,195 @@ def _kernel_vs_plain(rank, name: str, rows, chars, positions,
             "plain_ms": plain_ms, "gb_per_s": gbps, "max_abs_err": err,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _bwt_index(bwt):
+    """An FMIndex over a bare BWT of random symbols: what rank_batch and
+    the rank tables read of an index (the BWT, its occ checkpoints every
+    128 symbols, n). No text or suffix array stands behind it."""
+    import torch
+
+    from slamem_tpu_torch.index.build import FMIndex
+
+    n, block = bwt.numel(), 128
+    nb = -(-n // block)
+    padded = torch.cat([bwt, torch.full((nb * block - n,), 6,
+                                        dtype=torch.uint8,
+                                        device=bwt.device)]).view(nb, block)
+    per_block = torch.stack([(padded == c).sum(1, dtype=torch.int32)
+                             for c in range(4)], dim=1)
+    occ = torch.cat([torch.zeros((1, 4), dtype=torch.int32,
+                                 device=bwt.device),
+                     torch.cumsum(per_block, 0, dtype=torch.int32)])
+    return FMIndex(text=bwt, sa=bwt[:0].to(torch.int32), bwt=bwt,
+                   occ_ckpt=occ, counts=occ[-1], occ_block=block)
+
+
+def _sector_bound(rows, chars, positions, syms_per_word: int,
+                  ops_per_word: int) -> dict:
+    """Bound of a row count (nibble table of any width: 8 symbols a word,
+    K0: 4) on these queries: bytes = the distinct 32-byte sectors holding
+    a query's counter word or a symbol word below its position (each read
+    once) + chars, positions and out (12 B a query); operations =
+    ``ops_per_word`` a counted symbol word."""
+    import torch
+
+    width = int(rows.shape[1])
+    per_row = (width - 4) * syms_per_word
+    p, c = positions.long(), chars.long()
+    b = torch.div(p, per_row, rounding_mode="floor")
+    words = (p - b * per_row + syms_per_word - 1) // syms_per_word
+    row = rows.data_ptr() % 32 + b * width * 4     # byte of the row
+    nsec = (rows.data_ptr() % 32 + rows.numel() * 4 + 31) // 32
+    hit = torch.zeros(nsec + 1, dtype=torch.int32, device=p.device)
+    has = words > 0
+    first = (row + 16) // 32
+    last = (row + 16 + 4 * words - 1) // 32
+    ones = torch.ones_like(first, dtype=torch.int32)
+    hit.index_add_(0, first[has], ones[has])
+    hit.index_add_(0, last[has] + 1, -ones[has])
+    covered = torch.cumsum(hit, 0)[:nsec] > 0
+    covered[(row + 4 * c) // 32] = True           # the counter words
+    sectors = int(covered.sum())
+    out = _bound(32 * sectors + 12 * p.numel(),
+                 ops_per_word * int(words.sum()))
+    out["sectors"] = sectors
+    return out
+
+
+def _phase_2w(rank, build, pack2, tables: dict) -> dict:
+    """Phase 2w on each of ``tables`` (label -> (index, chars,
+    positions)): every drop-in == rank_batch, the counts set to 0 just
+    before and read just after (the main path of the any-width kernel);
+    then each kernel == its plain version, timed, with its bound."""
+    import torch
+
+    _reset_launches(rank, pack2)
+    for label, (index, chars, positions) in tables.items():
+        want = build.rank_batch(index, chars, positions)
+        for name, call in _drop_ins(rank, index, chars, positions):
+            _exact(f"2w {label} {name}", (call(),), (want,))
+        del want
+    torch.cuda.synchronize()
+    launches = {"rank_rows_nib_any": rank.rank_rows_nib.any_launches,
+                "rank_rows_nib": rank.rank_rows_nib.launches,
+                "rank_rows": rank.rank_rows.launches}
+    n_any = len(tables) * (len(NIB_WIDTHS) - 1)
+    if launches != {"rank_rows_nib_any": n_any,
+                    "rank_rows_nib": len(tables), "rank_rows": len(tables)}:
+        raise AssertionError(f"2w: launches {launches}; expected "
+                             f"{n_any} any-width, {len(tables)} 128-word "
+                             f"nibble and {len(tables)} K0")
+    _log(f"[2w] rank_nib at {NIB_WIDTHS} words, rank_pallas and rank_xla "
+         f"== rank_batch on {', '.join(tables)}; launches {launches}")
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel = rank.load_kernel()
+    out = {"launches": launches}
+    for label, (index, chars, positions) in tables.items():
+        for w in NIB_WIDTHS + ("k0",):
+            rows = rank.interleaved_rows(index) if w == "k0" else \
+                rank.nibble_rows(index, w)
+            plain = rank.rank_rows_plain if w == "k0" else \
+                rank.rank_rows_nib_plain
+            want = plain(rows, chars, positions)
+            res = torch.empty_like(positions)
+            nq = positions.numel()
+            fn, extra = ((kernel.fn, ()) if w == "k0" else
+                         (kernel.nib_fn, ()) if w == rank.ROW_WORDS else
+                         (kernel.nib_any_fn, (w,)))
+
+            def raw():
+                if fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
+                      res.data_ptr(), nq, *extra, stream):
+                    raise RuntimeError(f"2w {label} {w}: launch failed")
+
+            raw()
+            err = _exact(f"2w {label} {w} kernel", (res,), (want,))
+            ms = _cuda_ms(raw, 20)
+            plain_ms = _cuda_ms(lambda: plain(rows, chars, positions), 2)
+            bound = _sector_bound(rows, chars, positions,
+                                  4 if w == "k0" else 8,
+                                  16 if w == "k0" else 8)
+            out[f"{label} {w}"] = rec = {
+                "queries": nq, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, "table_bytes": rows.numel() * 4,
+                **bound}
+            _log(f"[2w] {label}, {'K0' if w == 'k0' else f'nib {w} words'}"
+                 f": {nq} queries, table {rec['table_bytes']} B; kernel "
+                 f"{ms:.6f} ms, plain {plain_ms:.6f} ms; bound "
+                 f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: "
+                 f"{bound['sectors']} sectors, {bound['bound_ops']} ops); "
+                 f"exact")
+            del rows, want, res
+    return out
+
+
+# phase 2w's row widths of the nibble table: the engine's 128 words, the
+# JAX package's bandwidth points and an odd width
+NIB_WIDTHS = (128, 512, 2048, 4096, 130)
+
+
+def _drop_ins(rank, index, chars, positions):
+    """(name, call) of every index-level drop-in for rank_batch."""
+    calls = [(f"rank_nib {w}", lambda w=w: rank.rank_nib(
+        index, chars, positions, row_words=w)) for w in NIB_WIDTHS]
+    return calls + [
+        ("rank_pallas", lambda: rank.rank_pallas(index, chars, positions)),
+        ("rank_xla", lambda: rank.rank_xla(index, chars, positions))]
+
+
+def _backward_steps(build, serialize, index, ref, count: int = 4096,
+                    k: int = 20) -> dict:
+    """``count`` random k-mers of ``ref`` (ACGT only), searched by k
+    backward_step calls on the card and on a CPU copy of the index: the
+    intervals must be equal and every k-mer found."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(HEADLINE["seed"])
+    starts = rng.integers(0, len(ref) - k, 4 * count)
+    pats = ref[starts[:, None] + np.arange(k)]
+    pats = torch.from_numpy(pats[(pats < 4).all(1)][:count].astype(np.int32))
+    cpu = serialize.index_from_numpy(
+        {f: getattr(index, f).cpu().numpy()
+         for f in ("text", "sa", "bwt", "occ_ckpt", "counts")},
+        index.occ_block, "cpu")
+    got = {}
+    for label, idx in (("cuda", index), ("cpu", cpu)):
+        lo = torch.zeros(count, dtype=torch.int32, device=idx.device)
+        hi = torch.full_like(lo, idx.n)
+        for d in range(k - 1, -1, -1):
+            lo, hi = build.backward_step(idx, pats[:, d].to(idx.device),
+                                         lo, hi)
+        got[label] = (lo.cpu(), hi.cpu())
+    _exact("2w backward_step cuda vs cpu", got["cuda"], got["cpu"])
+    width = got["cuda"][1] - got["cuda"][0]
+    if pats.shape[0] != count or int(width.min()) < 1:
+        raise AssertionError(f"2w backward_step: {pats.shape[0]} patterns, "
+                             f"narrowest interval {int(width.min())}")
+    _log(f"[2w] backward_step: {count} random {k}-mers of the reference, "
+         f"{k} steps on the card == on the CPU; every one found "
+         f"({int(width.sum())} occurrences, at most {int(width.max())})")
+    return {"patterns": count, "occurrences": int(width.sum())}
+
+
+def _demo(here: Path) -> dict:
+    """examples/demo_torch.py on the card (its default device), as a user
+    runs it: exit 0, the save/load and 4-slab listings identical."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(here / "examples" / "demo_torch.py")],
+        cwd=here, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(here)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or \
+            "byte-identical listing" not in proc.stdout:
+        raise AssertionError(f"2w demo_torch.py exit {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    tail = proc.stdout.strip().splitlines()[-3:]
+    _log(f"[2w] examples/demo_torch.py on the card: exit 0 in {wall:.3f} s;"
+         f" {' | '.join(tail)}")
+    return {"wall_s": wall}
 
 
 def _row_sectors(j, per_row: int, per_chunk: int):
@@ -827,6 +1033,7 @@ def _busy_share(fn) -> dict:
 def _reset_launches(rank, pack2) -> None:
     """Every kernel wrapper's launch count to 0."""
     rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+    rank.rank_rows_nib.any_launches = 0
     rank.scan_lanes.launches = dict.fromkeys(rank.SCAN_LAYOUTS, 0)
     pack2.unpack_codes.launches = 0
 
@@ -836,13 +1043,13 @@ def _scan_launches(rank, layout: str, want: int, label: str) -> int:
     unless they are ``want`` (one per chunk) and no other kernel (the other
     layout, a standalone rank kernel) was launched."""
     got = dict(rank.scan_lanes.launches)
-    other = rank.rank_rows.launches + rank.rank_rows_nib.launches + sum(
-        v for k, v in got.items() if k != layout)
+    standalone = (rank.rank_rows.launches, rank.rank_rows_nib.launches,
+                  rank.rank_rows_nib.any_launches)
+    other = sum(standalone) + sum(v for k, v in got.items() if k != layout)
     if got[layout] != want or other:
         raise AssertionError(f"{label}: scan kernel launches {got}, "
                              f"standalone rank kernel launches "
-                             f"{rank.rank_rows.launches}, "
-                             f"{rank.rank_rows_nib.launches}; expected "
+                             f"{standalone}; expected "
                              f"{want} on the {layout} table alone")
     return got[layout]
 
@@ -1503,7 +1710,7 @@ def _engine_phase(label: str, ref_set, qry_set, cfg, want: int | None,
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    out = run_engine(ref_set, qry_set, cfg, device)
+    out = run_engine(ref_set, qry_set, cfg, device=device)
     text = format_matches(out).encode()
     st = out.stats
     n = st["matches"]
@@ -1549,7 +1756,7 @@ def _native_phase(label: str, rp: str, qp: str, cfg, listing: bytes,
                 np.array_equal(getattr(a, f), getattr(b, f))
                 for f in ("starts", "lengths", "codes")):
             raise AssertionError(f"{label}: native FastaSet != numpy's")
-    out = run_engine(*sets, cfg, "cuda")
+    out = run_engine(*sets, cfg, device="cuda")
     t0 = time.perf_counter()
     native = format_matches(out)
     native_render = time.perf_counter() - t0
@@ -1729,6 +1936,8 @@ def run() -> int:
     from slamem_tpu_torch.cli.main import main as cli_main
     from slamem_tpu_torch.config import Config, MatchMode
     from slamem_tpu_torch.engine import scan_mode, seed_mode
+    from slamem_tpu_torch.index import build as index_build
+    from slamem_tpu_torch.index import serialize
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
     from slamem_tpu_torch.kernels import (buckets, extend, rank, seedkeys,
@@ -1806,6 +2015,28 @@ def run() -> int:
                                f"({rows_big.numel() * 4} B > L2)")
         checks[name] = {"big": big, "shape": shape, "hbm": hbm}
         del rows, rows_big
+
+    # 2w. the index-level drop-ins (rank_nib at every width, rank_pallas,
+    # rank_xla) == rank_batch on the headline index and on an index over
+    # the 200 M-symbol BWT; each kernel == plain, timed; backward_step;
+    # the demo twin on the card
+    edges = {0, 1, n - 1, n}
+    for per in [rank.SYMS_PER_ROW] + [(w - rank.CNT_WORDS) * 8
+                                      for w in NIB_WIDTHS]:
+        for b in range(n // per + 1):
+            edges.update(b * per + d for d in (-1, 0, 1, per // 2))
+    edge = torch.tensor(sorted(e for e in edges if 0 <= e <= n),
+                        dtype=torch.int32, device="cuda")
+    big_index = _bwt_index(bwt_big)
+    drop = _phase_2w(rank, index_build, pack2, {
+        "5 Mbp index": (index, torch.cat([rand_c, torch.arange(
+            4, dtype=torch.int32, device="cuda").repeat(edge.numel())]),
+                        torch.cat([rand_pos, edge.repeat_interleave(4)])),
+        "200 M-symbol index": (big_index, rand_c, pos_big)})
+    del big_index, edge
+    drop["backward_step"] = _backward_steps(index_build, serialize, index,
+                                            ref)
+    drop["demo"] = _demo(here)
     del bwt_big, pos_big, rand_pos, rand_c
 
     # u. the packed upload wire at config #5's sizes
@@ -2273,6 +2504,24 @@ def run() -> int:
             "bound_by": c["bound_by"],
             "whole_row_bound_ms": c["whole_row_bound_ms"],
             "library_ms": None})   # no PyTorch call runs a backward search
+    # the any-width nibble kernel (phase 2w): launches in 2w's main path
+    # (rank_nib at 512, 2048, 4096 and 130 words on both indexes), times at
+    # 512 words on the 5 Mbp index, every width beside
+    c = drop["5 Mbp index 512"]
+    kernels.append({
+        "name": "rank_rows_nib_any", "route": "cuda", "source": source,
+        "replaces": "slamem_tpu/kernels/rank.py:253 (row_words != 128)",
+        "path": "rank_nib(index, chars, positions, row_words)",
+        "launches": drop["launches"]["rank_rows_nib_any"],
+        "max_abs_err": max(v["max_abs_err"] for k, v in drop.items()
+                           if isinstance(v, dict) and "max_abs_err" in v),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "widths": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")}
+                   for k, v in drop.items() if isinstance(v, dict)
+                   and "ms" in v and not k.endswith((" 128", " k0"))},
+        "library_ms": None})   # no one PyTorch call computes occ
     # the unpack kernel at the 6a / 5d query's shape (phase u); launches:
     # 5a's two uploads
     c = wire["query"]

@@ -2,11 +2,15 @@
 maximal-exact-match (MEM) finder.
 
 The JAX package ``slamem_tpu`` is the reference; this package imports
-neither it nor JAX. Its layout mirrors the reference's (io/, index/,
-kernels/, engine/, report/, cli/), every entry point takes an explicit
-device, and the only TPU kernel of the reference, the Pallas rank kernel, is
-the hand-written CUDA kernel ``kernels/csrc/rank.cu``. The scan engine
-(``Config(engine="scan")``) runs end to end; see ROADMAP.md for the rest.
+neither it nor JAX. Its layout and public names mirror the reference's
+(io/, index/, kernels/, engine/, dist/, report/, cli/); every entry point
+takes a ``device`` (the card unless the caller asks for the CPU). The seed
+engine (the default) and the scan engine run end to end, on one device or a
+mesh of ranks. The only TPU kernel of the reference, the Pallas rank
+kernel, is the hand-written CUDA kernel ``kernels/csrc/rank.cu``, beside
+the port's other kernels (``kernels/csrc/``).
 """
 
 __version__ = "0.1.0"
+
+from slamem_tpu_torch.config import Config, MatchMode  # noqa: F401,E402

@@ -204,7 +204,7 @@ def main(argv: list[str] | None = None) -> int:
     index = None
     if extras["load_index"]:
         # a missing or unreadable file raises, as in the JAX CLI
-        index = load_index(extras["load_index"], device)
+        index = load_index(extras["load_index"], device=device)
         if index.n != len(rtext) + 1 or not np.array_equal(
                 index.text[:-1].cpu().numpy(), rtext):
             print("error: loaded index does not match the reference FASTA",
@@ -246,8 +246,8 @@ def main(argv: list[str] | None = None) -> int:
         else:
             mesh = make_mesh(world, device)
     try:
-        out = run_engine(ref_set, query_set, cfg, device, index=index,
-                         mesh=mesh)
+        out = run_engine(ref_set, query_set, cfg, index=index, mesh=mesh,
+                         device=device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -115,14 +115,14 @@ def is_output_process() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def make_mesh(n: int | None = None,
+def make_mesh(n_devices: int | None = None,
               device: str | torch.device = "cuda") -> Mesh:
-    """The mesh of ``n`` ranks (default: the world) on this process's
-    device. ``n`` must be the world size, or 1: the one-rank view (no
-    group), which runs the single-device programs."""
+    """The mesh of ``n_devices`` ranks (default: the world) on this
+    process's device. ``n_devices`` must be the world size, or 1: the
+    one-rank view (no group), which runs the single-device programs."""
     dev = resolve_device(device)
     world = world_size()
-    n = world if n is None else n
+    n = world if n_devices is None else n_devices
     if n == 1 and not (dist.is_initialized() and world == 1):
         return Mesh(1, 0, dev)
     if n != world:

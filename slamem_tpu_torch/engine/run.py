@@ -73,10 +73,11 @@ def _search_one(index: FMIndex, qcodes: np.ndarray, cfg: Config,
 
 
 def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
-               device: str | torch.device,
-               index: FMIndex | None = None,
-               mesh: Mesh | None = None) -> EngineOutput:
-    """Search every query sequence (both strands with -b) on ``device``.
+               index: FMIndex | None = None, mesh: Mesh | None = None,
+               device: str | torch.device = "cuda") -> EngineOutput:
+    """Search every query sequence (both strands with -b) on ``device``
+    (the card unless the caller asks for the CPU; a given ``index`` must
+    lie there).
 
     ``mesh`` (dist/mesh.py) runs the seed engine over its ranks; every rank
     calls run_engine with the same inputs and gets the same output. With

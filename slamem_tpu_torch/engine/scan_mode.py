@@ -228,9 +228,10 @@ def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
                        _occ_fn(index, rank_kernel), qt, L, lane_block)
 
 
-def find_scan_matches(index: FMIndex, query_text: np.ndarray,
-                      cfg: Config) -> seed_mode.SeedMatches:
-    """Scan frontend + shared pair/run backend (see seed_mode)."""
+def find_scan_matches(index: FMIndex, query_text: np.ndarray, cfg: Config,
+                      mesh=None) -> seed_mode.SeedMatches:
+    """Scan frontend + shared pair/run backend (see seed_mode); ``mesh``
+    goes on to the backend, as in the JAX package."""
     L = cfg.min_length
     clock = seed_mode.StageClock(index.device)
     # N-padding: no spurious intervals
@@ -250,4 +251,4 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray,
     clock.mark("frontend")
     # FM hits never touch specials: the plain SA is the all-valid view
     return seed_mode.pairs_to_matches(index, lo, width, L, m, cfg, index.sa,
-                                      qt=qt, clock=clock)
+                                      qt=qt, clock=clock, mesh=mesh)

@@ -203,3 +203,17 @@ def rank_batch(index: FMIndex, chars: torch.Tensor, positions: torch.Tensor
     in_block = ((rows == c[:, None].to(torch.uint8)) &
                 (lane < within[:, None])).sum(1, dtype=torch.int32)
     return base + in_block
+
+
+def backward_step(index: FMIndex, c: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batched FM backward-extension step: the interval of c+pattern.
+
+    (lo, hi) are SA-interval bounds [lo, hi); c integer codes in 0..3. One
+    rank_batch of the concatenated bounds, plus C[c], as in the JAX
+    package.
+    """
+    occ = rank_batch(index, torch.cat([c, c]), torch.cat([lo, hi]))
+    k = lo.shape[0]
+    cbase = index.counts[c.to(torch.int64)]
+    return cbase + occ[:k], cbase + occ[k:]

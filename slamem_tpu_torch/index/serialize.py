@@ -58,7 +58,9 @@ def index_from_numpy(arrays, occ_block: int,
     return FMIndex(occ_block=int(occ_block), **fields)
 
 
-def load_index(path: str, device: str | torch.device) -> FMIndex:
+def load_index(path: str, device: str | torch.device = "cuda") -> FMIndex:
+    """The index saved at ``path``, on ``device`` (the card unless the
+    caller asks for the CPU)."""
     with np.load(path) as z:
         version = int(z["version"])
         if version != FORMAT_VERSION:

@@ -183,6 +183,11 @@ def write_fasta(path: str | os.PathLike, seqs: list[Sequence],
                 f.write("\n")
 
 
+def str_to_codes(s: str) -> np.ndarray:
+    """ASCII bases -> codes (ACGT either case 0..3, every other letter N)."""
+    return _CODE_LUT[np.frombuffer(s.encode("ascii"), dtype=np.uint8)].copy()
+
+
 def codes_to_str(codes: np.ndarray) -> str:
     return _CODE_TO_CHAR[np.asarray(codes, dtype=np.uint8)].tobytes().decode("ascii")
 

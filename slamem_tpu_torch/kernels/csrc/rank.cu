@@ -1,15 +1,20 @@
 // FM-index occ(c, j) = #{i < j : bwt[i] == c} over one-row-per-query rank
 // tables, and the scan engine's backward search built on it, for NVIDIA
-// Hopper (sm_90a). One table layout per template argument: K0 (byte
-// symbols) and nibbles. Three parts:
+// Hopper (sm_90a). Two table layouts: K0 (byte symbols, 128-word rows) and
+// nibbles (128-word rows, or any width of more than 4 words). Four parts:
 //   * warp-wide device functions occ_warp<Layout> (one position) and
-//     occ2_warp<Layout> (the two positions of a backward-extend attempt):
-//     the row's 16-byte chunks that hold counted symbols, one count;
-//   * the standalone kernels rank_rows_kernel / rank_rows_nib_kernel, one
-//     warp per query, each a thin shell around occ_warp;
+//     occ2_warp<Layout> (the two positions of a backward-extend attempt)
+//     over 128-word rows: the row's 16-byte chunks that hold counted
+//     symbols, one count;
+//   * the standalone 128-word kernels rank_rows_kernel / rank_rows_nib_kernel
+//     (entry points slamem_rank_rows / slamem_rank_rows_nib), one warp per
+//     query, each a thin shell around occ_warp;
+//   * rank_rows_nib_any_kernel (entry point slamem_rank_rows_nib_any, which
+//     takes the row width), the nibble count at any row width, one warp per
+//     query, 4-byte word loads;
 //   * scan_lanes_kernel<Layout>, one warp per scan lane, which runs the
-//     scan engine's whole capped backward-search state machine and calls
-//     occ2_warp for every occ pair.
+//     scan engine's whole capped backward-search state machine over
+//     128-word rows and calls occ2_warp for every occ pair.
 //
 // --- K0 layout (rank_rows_kernel) ---
 //
@@ -32,9 +37,11 @@
 //
 // Replaces the JAX package's nibble-SWAR path slamem_tpu/kernels/rank.py::
 // rank_rows_nib (XLA there, no Pallas kernel; the JAX scan engine's default
-// rank path). Row b of the table is 128 int32 words (512 B): words 0-3 are
-// the counts of A, C, G and T in bwt[0 : 992 b]; words 4-127 each hold 8
-// symbols, symbol i in bits 4i..4i+3 (values 0..6, pad 6). So, with
+// rank path) at its default width of 128 words (other widths:
+// rank_rows_nib_any_kernel). Row b of the table is 128 int32 words (512 B):
+// words 0-3 are the counts of A, C, G and T in bwt[0 : 992 b]; words 4-127
+// each hold 8 symbols, symbol i in bits 4i..4i+3 (values 0..6, pad 6). So,
+// with
 // within = j % 992,
 //     occ(c, j) = rows[j / 992][c] + #{s < within : nibble s == c}.
 // Zero-nibble test (exact, no borrow between nibbles): with y = word ^
@@ -231,6 +238,52 @@ rank_rows_nib_kernel(const int4* __restrict__ rows,
   const int32_t occ =
       occ_warp<NibLayout>(rows, static_cast<uint32_t>(chars[q]), positions[q]);
   if (warp_lane() == 0) out[q] = occ;
+}
+
+// --- nibble layout at any row width (rank_rows_nib_any_kernel) ---
+//
+// The JAX package's rank_rows_nib takes the row width from its table
+// (slamem_tpu/kernels/rank.py::_build_rows_nib's row_words, "the FM
+// block-size knob"): row b of a table of W words holds the counters of A, C,
+// G and T in bwt[0 : P b] in words 0-3 and P = 8 (W - 4) symbols in words
+// 4..W-1, so with within = j % P
+//     occ(c, j) = rows[j / P][c] + #{s < within : nibble s == c}.
+// A row of W words starts at a 4-byte boundary only (W need not be a
+// multiple of 4), so the kernel reads 4-byte words: one warp a query, lane 0
+// the counter word, then the lanes stride over the ceil(within / 8) symbol
+// words below the position (consecutive lanes on consecutive words), each
+// counted by the zero-nibble test under the position's mask; one
+// __reduce_add_sync sums the lanes. What bounds it: the sectors under the
+// counted words (a query reads on average half its row) and, at wide rows,
+// the loop's issue; the 128-word table keeps its own kernel above.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+rank_rows_nib_any_kernel(const uint32_t* __restrict__ rows,
+                         const int32_t* __restrict__ chars,
+                         const int32_t* __restrict__ positions,
+                         int32_t* __restrict__ out, int64_t nq,
+                         int32_t row_words) {
+  const int64_t q =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (q >= nq) return;  // q is uniform across the warp: whole warps exit
+  const int lane = warp_lane();
+  const uint32_t c = static_cast<uint32_t>(chars[q]);
+  const int32_t j = positions[q];
+  const int32_t per_row = (row_words - kCntWords) * 8;
+  const int32_t b = j / per_row;
+  const int32_t within = j - b * per_row;
+  const uint32_t* __restrict__ row =
+      rows + static_cast<int64_t>(b) * row_words;
+  const uint32_t rep = c * 0x11111111u;
+  uint32_t cnt = lane == 0 ? __ldg(row + c) : 0u;
+  const int32_t words = (within + 7) >> 3;  // the last one may be partial
+  for (int32_t w = lane; w < words; w += 32) {
+    const uint32_t y = __ldg(row + kCntWords + w) ^ rep;
+    const uint32_t t = y & 0x77777777u;
+    const uint32_t nz = ~((t + 0x77777777u) | y) & 0x88888888u;
+    cnt += __popc(nz & low_mask(4 * min(within - 8 * w, 8)));
+  }
+  cnt = __reduce_add_sync(kFull, cnt);
+  if (lane == 0) out[q] = static_cast<int32_t>(cnt);
 }
 
 // --- scan_lanes_kernel ---
@@ -483,6 +536,26 @@ extern "C" int slamem_rank_rows_nib(const void* rows, const void* chars,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(rows), static_cast<const int32_t*>(chars),
       static_cast<const int32_t*>(positions), static_cast<int32_t*>(out), nq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of the any-width nibble kernel; rows is (nrows,
+// row_words) int32, row_words > 4 and 8 (row_words - 4) < 2^31.
+extern "C" int slamem_rank_rows_nib_any(const void* rows, const void* chars,
+                                        const void* positions, void* out,
+                                        int64_t nq, int32_t row_words,
+                                        void* stream) {
+  if (row_words <= kCntWords || row_words > (INT_MAX >> 3) + kCntWords) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nq <= 0) return 0;
+  const int64_t blocks = (nq + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  rank_rows_nib_any_kernel<<<static_cast<unsigned int>(blocks),
+                             kWarpsPerBlock * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(chars),
+      static_cast<const int32_t*>(positions), static_cast<int32_t*>(out), nq,
+      row_words);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,17 +7,21 @@ package's ``slamem_tpu/kernels/rank.py``, bit for bit:
     interleaved, 128 int32 words per row (rank_rows, kernel K0):
         row b = [ occ_A, occ_C, occ_G, occ_T at position b*496 |
                   124 words x 4 bytes = 496 BWT symbols, little-endian ]
-    nibble, 128 int32 words per row (rank_rows_nib):
-        row b = [ occ_A..occ_T at position b*992 |
-                  124 words x 8 nibbles = 992 symbols, nibble i at bits 4i ]
+    nibble, W int32 words per row (rank_rows_nib; W = row_words > 4, 128
+    by default, the scan engine's table):
+        row b = [ occ_A..occ_T at position b*P | W - 4 words x 8 nibbles =
+                  P = 8 (W - 4) symbols, nibble i at bits 4i ]
 
 so one query touches exactly one row. ``rank_rows`` and ``rank_rows_nib``
 launch the hand-written CUDA kernels of ``csrc/rank.cu`` on CUDA tensors
 (K0 ports the Pallas kernel ``slamem_tpu/kernels/rank.py::_rank_kernel``;
-the nibble kernel ports the XLA function ``rank_rows_nib`` of the same
-file) and their plain PyTorch versions ``rank_rows_plain`` /
-``rank_rows_nib_plain`` on CPU tensors; neither falls back from one to the
-other. ``scan_lanes`` launches the scan kernel (one warp per scan lane,
+the nibble kernels port the XLA function ``rank_rows_nib`` of the same
+file: one for 128-word rows, one for any other width) and their plain
+PyTorch versions ``rank_rows_plain`` / ``rank_rows_nib_plain`` on CPU
+tensors; neither falls back from one to the other. ``rank_pallas``,
+``rank_nib`` and ``rank_xla`` are the JAX package's index-level drop-ins
+for ``index.build.rank_batch``. ``scan_lanes`` launches the scan kernel
+(one warp per scan lane,
 the whole capped backward search of ``engine/scan_mode.py::_scan_lanes``
 with the same row counts inside, each occ pair counted from the nearer of
 two row counters) on either layout. The library
@@ -87,38 +91,52 @@ def rank_rows_plain(rows: torch.Tensor, chars: torch.Tensor,
     return base + hits
 
 
-def _build_rows_nib(bwt: torch.Tensor) -> torch.Tensor:
-    """Nibble-packed (rows, 128) int32 occ/BWT table from a uint8 BWT.
+def _nib_per_row(row_words: int) -> int:
+    """Symbols of a nibble-table row of ``row_words`` words; raises unless
+    4 < row_words and the count fits int32."""
+    if not CNT_WORDS < row_words <= CNT_WORDS + (2**31 - 1) // 8:
+        raise ValueError(f"row_words must lie in ({CNT_WORDS}, "
+                         f"{CNT_WORDS + (2**31 - 1) // 8}], got {row_words}")
+    return (row_words - CNT_WORDS) * 8
 
-    The JAX package's ``_build_rows_nib`` at its default 128 words, bit for
-    bit: its uint32 words all lie below 2^31 (the top nibble is at most 6,
-    the counters count fewer than 2^31 symbols), so the int32 bits equal
-    them. Symbols 0..6 (ACGT, N, SEP, the BWT sentinel and the pad 6) fit a
+
+def _build_rows_nib(bwt: torch.Tensor,
+                    row_words: int = ROW_WORDS) -> torch.Tensor:
+    """Nibble-packed (rows, row_words) int32 occ/BWT table from a uint8
+    BWT.
+
+    The JAX package's ``_build_rows_nib`` at the same width, bit for bit:
+    its uint32 words all lie below 2^31 (the top nibble is at most 6, the
+    counters count fewer than 2^31 symbols), so the int32 bits equal them.
+    Symbols 0..6 (ACGT, N, SEP, the BWT sentinel and the pad 6) fit a
     nibble; pad 6 never counts toward an ACGT char. Counters by per-row
     counts + cumsum.
     """
+    nib_per = _nib_per_row(row_words)
     n = bwt.shape[0]
-    nrows = n // NIB_PER_ROW + 1  # +1: position j == n stays in range
-    pad = nrows * NIB_PER_ROW - n
+    nrows = n // nib_per + 1  # +1: position j == n stays in range
+    pad = nrows * nib_per - n
     sym = torch.cat([bwt, torch.full((pad,), 6, dtype=torch.uint8,
-                                     device=bwt.device)]).view(nrows,
-                                                               NIB_PER_ROW)
+                                     device=bwt.device)]).view(nrows, nib_per)
     per_row = torch.stack([(sym == c).sum(1, dtype=torch.int32)
                            for c in range(4)], dim=1)
     prefix = torch.cumsum(per_row, 0, dtype=torch.int32) - per_row
-    nib = sym.view(nrows, ROW_WORDS - CNT_WORDS, 8)
-    words = torch.zeros((nrows, ROW_WORDS - CNT_WORDS), dtype=torch.int32,
+    nib = sym.view(nrows, row_words - CNT_WORDS, 8)
+    words = torch.zeros((nrows, row_words - CNT_WORDS), dtype=torch.int32,
                         device=bwt.device)
     for i in range(8):          # nibble i of a word at bits 4i..4i+3
         words |= nib[:, :, i].to(torch.int32) << (4 * i)
     return torch.cat([prefix, words], dim=1).contiguous()
 
 
-def nibble_rows(index) -> torch.Tensor:
-    """The nibble occ/BWT table of an FMIndex, built once per index."""
-    rows = index.derived.get("rank_rows_nib")
+def nibble_rows(index, row_words: int = ROW_WORDS) -> torch.Tensor:
+    """The nibble occ/BWT table of an FMIndex at ``row_words`` words a row,
+    built once per index and width."""
+    key = "rank_rows_nib" if row_words == ROW_WORDS else \
+        f"rank_rows_nib_{row_words}"
+    rows = index.derived.get(key)
     if rows is None:
-        rows = index.derived["rank_rows_nib"] = _build_rows_nib(index.bwt)
+        rows = index.derived[key] = _build_rows_nib(index.bwt, row_words)
     return rows
 
 
@@ -131,11 +149,17 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
+# elements of one (queries, symbol words) block of the plain nibble count:
+# a wide table's batch goes through in blocks of queries, not at once
+_PLAIN_BLOCK = 1 << 27
+
+
 def rank_rows_nib_plain(rows: torch.Tensor, chars: torch.Tensor,
                         positions: torch.Tensor) -> torch.Tensor:
-    """occ(c, j) over the nibble table in plain PyTorch: one row gather,
-    then the JAX package's rank_rows_nib SWAR count. The reference the
-    kernel is held to.
+    """occ(c, j) over a nibble table of any width (``rows.shape[1]``) in
+    plain PyTorch: one row gather, then the JAX package's rank_rows_nib
+    SWAR count, in blocks of at most 2^27 (query, word) elements. The
+    reference the kernels are held to.
 
     With y = word ^ (c * 0x11111111) and t = y & 0x77777777, the high bit
     of nibble i of ~((t + 0x77777777) | y) is set iff that nibble of y is
@@ -145,12 +169,23 @@ def rank_rows_nib_plain(rows: torch.Tensor, chars: torch.Tensor,
     later words not at all. 32-bit arithmetic in int64 (torch has no
     uint32 arithmetic; t + 0x77777777 overflows int32), masked to 32 bits.
     """
-    nwords = ROW_WORDS - CNT_WORDS
+    nwords = rows.shape[1] - CNT_WORDS
+    nib_per = _nib_per_row(rows.shape[1])
+    step = max(1, _PLAIN_BLOCK // nwords)
+    return torch.cat([_nib_count(rows, chars[a:a + step],
+                                 positions[a:a + step], nwords, nib_per)
+                      for a in range(0, positions.numel(), step)]
+                     or [positions.new_empty(0, dtype=torch.int32)])
+
+
+def _nib_count(rows: torch.Tensor, chars: torch.Tensor,
+               positions: torch.Tensor, nwords: int,
+               nib_per: int) -> torch.Tensor:
     p = positions.to(torch.int64)
     c = chars.to(torch.int64)
-    blk = torch.div(p, NIB_PER_ROW, rounding_mode="floor")
-    within = p - blk * NIB_PER_ROW
-    row = rows[blk]                                       # (batch, 128)
+    blk = torch.div(p, nib_per, rounding_mode="floor")
+    within = p - blk * nib_per
+    row = rows[blk]                                       # (batch, width)
     base = row.gather(1, c[:, None])[:, 0]
     w = row[:, CNT_WORDS:].to(torch.int64) & 0xFFFFFFFF   # (batch, nwords)
     y = w ^ (c * 0x11111111)[:, None]
@@ -177,7 +212,8 @@ class _Pyramid(ctypes.Structure):
 
 class _Kernel(NamedTuple):
     fn: ctypes._CFuncPtr       # slamem_rank_rows (K0)
-    nib_fn: ctypes._CFuncPtr   # slamem_rank_rows_nib
+    nib_fn: ctypes._CFuncPtr   # slamem_rank_rows_nib (128-word rows)
+    nib_any_fn: ctypes._CFuncPtr  # slamem_rank_rows_nib_any (any width)
     scan_fns: dict             # layout -> slamem_scan_lanes_k0 / _nib
     blocks_per_sm: ctypes._CFuncPtr  # slamem_scan_lanes_blocks_per_sm
     path: Path
@@ -196,6 +232,10 @@ def load_kernel() -> _Kernel:
     nib_fn = lib.slamem_rank_rows_nib
     nib_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
     nib_fn.restype = ctypes.c_int
+    nib_any_fn = lib.slamem_rank_rows_nib_any
+    nib_any_fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    nib_any_fn.restype = ctypes.c_int
     scan_fns = {}
     for layout in SCAN_LAYOUTS:
         f = getattr(lib, f"slamem_scan_lanes_{layout}")
@@ -209,17 +249,22 @@ def load_kernel() -> _Kernel:
     blocks_per_sm = lib.slamem_scan_lanes_blocks_per_sm
     blocks_per_sm.argtypes = [ctypes.c_int]
     blocks_per_sm.restype = ctypes.c_int
-    return _Kernel(fn, nib_fn, scan_fns, blocks_per_sm, path, log)
+    return _Kernel(fn, nib_fn, nib_any_fn, scan_fns, blocks_per_sm, path,
+                   log)
 
 
 def _check(rows: torch.Tensor, chars: torch.Tensor, positions: torch.Tensor,
-           syms_per_row: int) -> None:
-    """Argument check of both wrappers: rows (nrows >= 1, 128) int32,
-    positions inside the table's span of nrows * syms_per_row."""
+           layout: str) -> None:
+    """Argument check of both wrappers: rows (nrows >= 1, width) int32 with
+    width 128 ("k0") or any width > 4 ("nib"), 16-byte aligned at 128
+    words; positions inside the table's span of nrows * symbols a row."""
     if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[0] < 1 or \
-            rows.shape[1] != ROW_WORDS:
-        raise ValueError(f"rows must be (nrows >= 1, {ROW_WORDS}) int32, got "
+            (layout == "k0" and rows.shape[1] != ROW_WORDS):
+        width = ROW_WORDS if layout == "k0" else "row_words"
+        raise ValueError(f"rows must be (nrows >= 1, {width}) int32, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
+    syms_per_row = SYMS_PER_ROW if layout == "k0" else \
+        _nib_per_row(rows.shape[1])
     for name, t in (("chars", chars), ("positions", positions)):
         if t.dtype != torch.int32 or t.dim() != 1:
             raise ValueError(f"{name} must be 1-D int32, got "
@@ -231,8 +276,10 @@ def _check(rows: torch.Tensor, chars: torch.Tensor, positions: torch.Tensor,
     if chars.shape != positions.shape:
         raise ValueError(f"chars {tuple(chars.shape)} and positions "
                          f"{tuple(positions.shape)} differ in shape")
-    if not rows.is_contiguous() or rows.data_ptr() % 16:
-        raise ValueError("rows must be contiguous and 16-byte aligned")
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
+    if rows.shape[1] == ROW_WORDS and rows.data_ptr() % 16:
+        raise ValueError("128-word rows must be 16-byte aligned")
     if positions.numel():
         pmin, pmax, cmin, cmax = torch.stack(
             [positions.min(), positions.max(), chars.min(), chars.max()]
@@ -246,8 +293,9 @@ def _check(rows: torch.Tensor, chars: torch.Tensor, positions: torch.Tensor,
 
 
 def _launch(fn, rows: torch.Tensor, chars: torch.Tensor,
-            positions: torch.Tensor) -> torch.Tensor:
-    """Launch one entry point on the current stream of the rows' card."""
+            positions: torch.Tensor, *width) -> torch.Tensor:
+    """Launch one entry point on the current stream of the rows' card
+    (``width``: the row width, for the any-width entry)."""
     out = torch.empty_like(positions)
     nq = positions.numel()
     if nq == 0:
@@ -255,7 +303,7 @@ def _launch(fn, rows: torch.Tensor, chars: torch.Tensor,
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
-                 out.data_ptr(), nq, stream)
+                 out.data_ptr(), nq, *width, stream)
     if err != 0:
         raise RuntimeError(f"rank kernel launch failed: CUDA error {err}")
     return out
@@ -271,7 +319,7 @@ def rank_rows(rows: torch.Tensor, chars: torch.Tensor,
     and count the launch in ``rank_rows.launches``; CPU tensors take
     ``rank_rows_plain``.
     """
-    _check(rows, chars, positions, SYMS_PER_ROW)
+    _check(rows, chars, positions, "k0")
     if rows.device.type == "cpu":
         return rank_rows_plain(rows, chars, positions)
     out = _launch(load_kernel().fn, rows, chars, positions)
@@ -285,23 +333,69 @@ rank_rows.launches = 0
 
 def rank_rows_nib(rows: torch.Tensor, chars: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
-    """occ(c, j) batched over a prebuilt nibble table, int32 (batch,).
+    """occ(c, j) batched over a prebuilt nibble table of any width
+    (``rows.shape[1]`` words), int32 (batch,).
 
-    ``positions`` must lie in [0, nrows*992). CUDA tensors launch the
-    kernel on the current stream, without synchronising, and count the
-    launch in ``rank_rows_nib.launches``; CPU tensors take
-    ``rank_rows_nib_plain``.
+    ``positions`` must lie in [0, nrows * 8 * (width - 4)). CUDA tensors
+    launch a kernel on the current stream, without synchronising: at 128
+    words the 128-word kernel (launches in ``rank_rows_nib.launches``), at
+    any other width the any-width kernel (``rank_rows_nib.any_launches``).
+    CPU tensors take ``rank_rows_nib_plain``.
     """
-    _check(rows, chars, positions, NIB_PER_ROW)
+    _check(rows, chars, positions, "nib")
     if rows.device.type == "cpu":
         return rank_rows_nib_plain(rows, chars, positions)
-    out = _launch(load_kernel().nib_fn, rows, chars, positions)
-    if positions.numel():
-        rank_rows_nib.launches += 1
+    kernel = load_kernel()
+    if rows.shape[1] == ROW_WORDS:
+        out = _launch(kernel.nib_fn, rows, chars, positions)
+        if positions.numel():
+            rank_rows_nib.launches += 1
+    else:
+        out = _launch(kernel.nib_any_fn, rows, chars, positions,
+                      rows.shape[1])
+        if positions.numel():
+            rank_rows_nib.any_launches += 1
     return out
 
 
 rank_rows_nib.launches = 0
+rank_rows_nib.any_launches = 0
+
+
+def _queries(chars: torch.Tensor, positions: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(chars, positions) of an index-level call as the wrappers take
+    them: 1-D contiguous int32, as ``rank_batch`` takes any integer type."""
+    return (chars.to(torch.int32).contiguous(),
+            positions.to(torch.int32).contiguous())
+
+
+def rank_pallas(index, chars: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+    """occ(c, j) batched over the index's interleaved table: K0 on a card
+    (the JAX package's Pallas path), drop-in for rank_batch. The JAX
+    ``interpret`` flag has no counterpart: an index on the CPU takes the
+    plain version."""
+    return rank_rows(interleaved_rows(index), *_queries(chars, positions))
+
+
+def rank_nib(index, chars: torch.Tensor, positions: torch.Tensor,
+             row_words: int = ROW_WORDS) -> torch.Tensor:
+    """occ(c, j) batched over the index's nibble table of ``row_words``
+    words a row (the FM block-size knob), drop-in for rank_batch."""
+    return rank_rows_nib(nibble_rows(index, row_words),
+                         *_queries(chars, positions))
+
+
+def rank_xla(index, chars: torch.Tensor, positions: torch.Tensor
+             ) -> torch.Tensor:
+    """occ(c, j) batched by the plain row gather over the index's
+    interleaved table on its device (the JAX package's non-Pallas path;
+    no kernel), drop-in for rank_batch."""
+    c, p = _queries(chars, positions)
+    rows = interleaved_rows(index)
+    _check(rows, c, p, "k0")
+    return rank_rows_plain(rows, c, p)
 
 # scan kernel layouts: symbols per table row
 SCAN_LAYOUTS = {"k0": SYMS_PER_ROW, "nib": NIB_PER_ROW}

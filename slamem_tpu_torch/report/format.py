@@ -51,11 +51,16 @@ def format_matches_python(out: EngineOutput) -> str:
     return buf.getvalue()
 
 
-def format_matches(out: EngineOutput) -> str:
+def format_matches(out: EngineOutput, force: str | None = None) -> str:
     """Render the full listing for all query sequences/strands; the match
     lines by the native renderer. Reference names are padded here, by
     characters as Python pads them, so C copies them whole and any name
-    (non-ASCII too) gives the Python renderer's bytes."""
+    (non-ASCII too) gives the Python renderer's bytes. ``force`` pins the
+    renderer as in the JAX package: None or ``"native"`` the C library
+    (which raises where it cannot be built), any other value
+    ``format_matches_python``."""
+    if force not in (None, "native"):
+        return format_matches_python(out)
     from slamem_tpu_torch._native import matchfmt
 
     buf = io.StringIO()
@@ -72,3 +77,9 @@ def format_matches(out: EngineOutput) -> str:
                                            qm.length)
         buf.write(lines.decode("utf-8"))
     return buf.getvalue()
+
+
+def write_matches(path: str, out: EngineOutput) -> None:
+    """Write the listing (``format_matches``) to ``path``."""
+    with open(path, "w") as f:
+        f.write(format_matches(out))

@@ -1,4 +1,5 @@
-"""Port on the card: the CUDA rank kernels (K0 and the nibble kernel), the
+"""Port on the card: the CUDA rank kernels (K0, the 128-word nibble kernel
+and the any-width nibble kernel, and the index-level drop-ins over them), the
 scan kernel (``scan_lanes``, both table layouts), the 2-bit unpack kernel
 of the upload wire (``unpack_codes``), the seed engine's endpoint-extension
 kernel (``extend_runs``), the seed tables' key and bucket-start kernels
@@ -104,8 +105,87 @@ def test_nib_kernel_equals_plain(cuda, n):
     assert torch.equal(got[inside], rank_batch(idx, c[inside], p[inside]))
 
 
+@pytest.mark.parametrize("row_words", [512, 2048, 4096, 130, 5, 131])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_nib_any_width_kernel_equals_plain(cuda, row_words, offset):
+    """The any-width nibble kernel (rank_nib / rank_rows_nib at a width
+    other than 128) == its plain version and rank_batch on random queries
+    and every row edge, on a table at a 16-byte (offset 0) or a 4-byte
+    (offset 1 word) address; it alone launches, once a call."""
+    t = with_n_runs(random_genome(250_000, seed=166), 2, 30, seed=167)
+    idx = build_index(t, device=cuda)
+    table = rank.nibble_rows(idx, row_words)
+    buf = torch.empty(table.numel() + offset, dtype=torch.int32,
+                      device=cuda)
+    rows = buf[offset:].view(table.shape)
+    rows.copy_(table)
+    per_row = rank._nib_per_row(row_words)
+    span = rows.shape[0] * per_row
+    starts = np.arange(0, span, per_row)
+    rng = np.random.default_rng(row_words)
+    edge = np.unique(np.clip(np.concatenate(
+        [starts, starts + 1, starts - 1, starts + per_row // 2,
+         [0, 1, 7, 8, 9, idx.n - 1, idx.n, span - 1]]), 0, span - 1))
+    pos = np.concatenate([rng.integers(0, span, 100_000),
+                          np.repeat(edge, 4)])
+    chars = np.concatenate([rng.integers(0, 4, 100_000),
+                            np.tile(np.arange(4), edge.size)])
+    p = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    c = torch.from_numpy(chars.astype(np.int32)).to(cuda)
+    _reset_launches()
+    got = rank.rank_rows_nib(rows, c, p)
+    torch.cuda.synchronize()
+    assert (rank.rank_rows_nib.any_launches, rank.rank_rows_nib.launches) \
+        == (1, 0)
+    assert torch.equal(got, rank.rank_rows_nib_plain(rows, c, p))
+    inside = p <= idx.n
+    assert torch.equal(got[inside], rank_batch(idx, c[inside], p[inside]))
+    if offset == 0:
+        assert torch.equal(rank.rank_nib(idx, c[inside], p[inside],
+                                         row_words=row_words), got[inside])
+        assert rank.rank_rows_nib.any_launches == 2
+
+
+def test_index_drop_ins_on_cuda(cuda):
+    """rank_pallas launches K0, rank_nib at 128 words the 128-word nibble
+    kernel, rank_xla no kernel; all == rank_batch; backward_step on the
+    card == on the CPU."""
+    from slamem_tpu_torch.index.build import backward_step
+    from slamem_tpu_torch.index.serialize import index_from_numpy
+
+    t = with_n_runs(random_genome(60_000, seed=168), 2, 30, seed=169)
+    idx = build_index(t, device=cuda)
+    rng = np.random.default_rng(170)
+    p = torch.from_numpy(rng.integers(0, idx.n + 1, 50_000)).to(cuda)
+    c = torch.from_numpy(rng.integers(0, 4, 50_000)).to(cuda)
+    want = rank_batch(idx, c, p)
+    _reset_launches()
+    assert torch.equal(rank.rank_pallas(idx, c, p), want)
+    assert torch.equal(rank.rank_nib(idx, c, p), want)
+    assert torch.equal(rank.rank_xla(idx, c, p), want)
+    assert (rank.rank_rows.launches, rank.rank_rows_nib.launches,
+            rank.rank_rows_nib.any_launches) == (1, 1, 0)
+    cpu = index_from_numpy({f: getattr(idx, f).cpu().numpy() for f in
+                            ("text", "sa", "bwt", "occ_ckpt", "counts")},
+                           idx.occ_block, "cpu")
+    starts = rng.integers(0, 60_000 - 20, 3 * 4096)
+    pats = t[starts[:, None] + np.arange(20)].astype(np.int32)
+    pats = pats[(pats < 4).all(1)][:4096]   # 20-mers of ACGT alone
+    assert pats.shape[0] == 4096
+    lo = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    hi = torch.full((4096,), idx.n, dtype=torch.int32, device=cuda)
+    clo, chi = lo.cpu(), hi.cpu()
+    for d in range(19, -1, -1):
+        col = torch.from_numpy(np.ascontiguousarray(pats[:, d]))
+        lo, hi = backward_step(idx, col.to(cuda), lo, hi)
+        clo, chi = backward_step(cpu, col, clo, chi)
+    assert torch.equal(lo.cpu(), clo) and torch.equal(hi.cpu(), chi)
+    assert bool(((hi - lo) >= 1).all())   # each occurs in the reference
+
+
 def _reset_launches():
     rank.rank_rows.launches = rank.rank_rows_nib.launches = 0
+    rank.rank_rows_nib.any_launches = 0
     rank.scan_lanes.launches = dict.fromkeys(rank.SCAN_LAYOUTS, 0)
 
 

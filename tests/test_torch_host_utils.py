@@ -100,7 +100,7 @@ def test_phase_log_records_and_lines(json_mode, monkeypatch, capsys):
     monkeypatch.setenv("SLAMEM_LOG_JSON", "1" if json_mode else "0")
     ref_set, q_set = _sets()
     out = run_engine(ref_set, q_set, Config(min_length=14, verbose=True),
-                     "cpu")
+                     device="cpu")
     err = capsys.readouterr().err.strip().splitlines()
     recs = out.stats["phases"]
     assert [r["phase"] for r in recs] == ["index_build", "query"]

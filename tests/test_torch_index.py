@@ -89,10 +89,12 @@ def test_npz_round_trips_both_ways(tmp_path):
     tidx = build_index(t, occ_block=64, device="cpu")
     # JAX-saved -> port, and port-saved -> JAX and -> port
     jax_save(str(tmp_path / "j.npz"), jidx)
-    _assert_same_index(jidx, load_index(str(tmp_path / "j.npz"), "cpu"))
+    _assert_same_index(jidx, load_index(str(tmp_path / "j.npz"),
+                                        device="cpu"))
     save_index(str(tmp_path / "t.npz"), tidx)
     _assert_same_index(jax_load(str(tmp_path / "t.npz")), tidx)
-    _assert_same_index(jidx, load_index(str(tmp_path / "t.npz"), "cpu"))
+    _assert_same_index(jidx, load_index(str(tmp_path / "t.npz"),
+                                        device="cpu"))
 
 
 def test_index_from_numpy_and_its_checks():
@@ -116,7 +118,7 @@ def test_load_rejects_other_format_version(tmp_path):
     arrays["version"] = np.int64(2)
     np.savez(tmp_path / "v2.npz", **arrays)
     with pytest.raises(ValueError, match="format version"):
-        load_index(str(tmp_path / "v2.npz"), "cpu")
+        load_index(str(tmp_path / "v2.npz"), device="cpu")
 
 
 def test_synth_same_arrays_as_jax():

@@ -13,6 +13,7 @@ mesh branches at world size 1. Tolerance: exact — intervals, run triples
 and match tuples are integers and must be equal.
 """
 
+import contextlib
 import json
 import os
 import socket
@@ -107,10 +108,18 @@ np.savez(job["out"] + f".{mesh.rank}.npz", **res)
 """
 
 
-def _free_port() -> int:
+@contextlib.contextmanager
+def _reserved_port():
+    """A free port, held for the ``with`` block by a socket bound to it
+    with SO_REUSEADDR and not listening. While it is held, no bind to port
+    0 in any process (another test's free port, a gloo or JAX listener) is
+    handed it, so no other world's rank can join this world's store or
+    take its port; rank 0's store, which binds with SO_REUSEADDR, can
+    still bind and listen on it."""
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        yield s.getsockname()[1]
 
 
 def rank_env(port: int, world: int, rank: int) -> dict:
@@ -125,28 +134,29 @@ def rank_env(port: int, world: int, rank: int) -> dict:
 
 
 def run_ranks(argvs: list[list[str]], timeout: float = _TIMEOUT_S):
-    """Start one process per argv (rank = position) joined as one world;
-    returns [(returncode, stderr)] per rank. A world that outlives
-    ``timeout`` is killed and fails the test. A world whose coordinator
-    port was taken between its choice and rank 0's bind (EADDRINUSE) is
+    """Start one process per argv (rank = position) joined as one world on
+    a port reserved until every rank has ended; returns [(returncode,
+    stderr)] per rank. A world that outlives ``timeout`` is killed and
+    fails the test. A world whose port another process chose before it
+    was reserved and then listened on (EADDRINUSE at rank 0's bind) is
     started once more on another port."""
     for attempt in range(2):
-        port = _free_port()
-        procs = [subprocess.Popen(argv, cwd=REPO,
-                                  env=rank_env(port, len(argvs), r),
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for r, argv in enumerate(argvs)]
-        out = []
-        try:
-            for p in procs:
-                _, err = p.communicate(timeout=timeout)
-                out.append((p.returncode, err))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        with _reserved_port() as port:
+            procs = [subprocess.Popen(argv, cwd=REPO,
+                                      env=rank_env(port, len(argvs), r),
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for r, argv in enumerate(argvs)]
+            out = []
+            try:
+                for p in procs:
+                    _, err = p.communicate(timeout=timeout)
+                    out.append((p.returncode, err))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
         if not any("EADDRINUSE" in err for _, err in out):
             break
     return out
@@ -369,8 +379,9 @@ def test_full_query_step_gathers_every_block(worlds, w):
 @pytest.fixture
 def one_rank():
     """A gloo group of one rank in this process, destroyed afterwards."""
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", world_size=1, rank=0)
+    with _reserved_port() as port:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=1, rank=0)
     try:
         yield mesh.make_mesh(1, "cpu")
     finally:

@@ -174,7 +174,7 @@ def test_rank_rows_nib_rejects_bad_arguments():
     bad = [
         (rows.to(torch.int64), c, p),                   # table dtype
         (rows[:, :4].contiguous(), c, p),               # no symbol words
-        (rows[:, :126].contiguous(), c, p),             # table width
+        (rows[:3, :126].contiguous(), c, p),            # span 3 x 976 < n
         (rows[0], c, p),                                # not 2-D
         (rows, c.to(torch.int64), p),                   # chars dtype
         (rows, c, p.to(torch.int64)),                   # positions dtype

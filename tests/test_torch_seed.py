@@ -488,7 +488,7 @@ def test_run_engine_boundary_listing_equal_jax(engine, mode):
                                         match_backend="boundary", **fields)))
     ref_set, qry_set = sets(FastaSet, *refs), sets(FastaSet, *qrys)
     listings = [format_matches(run_engine(ref_set, qry_set, Config(
-        mode=MatchMode(mode), **fields, **extra), "cpu"))
+        mode=MatchMode(mode), **fields, **extra), device="cpu"))
         for extra in (dict(match_backend="boundary"),
                       dict(match_backend="boundary", pair_capacity=128),
                       {})]
