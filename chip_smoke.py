@@ -16,7 +16,14 @@ Phases, each of which raises on failure (exit status non-zero):
      table) and the nibble kernel (rank_rows_nib, nibble table), each on
      the 5 Mbp headline reference's table with >= 4M random (c, j) queries
      plus the row-edge positions, at the old scan batch shape (32,768
-     queries), and on a random 200 M-symbol table larger than L2;
+     queries), and on a random 200 M-symbol table larger than L2, each
+     with its bound (bytes: the distinct 32-byte sectors under each
+     query's counter word and the symbol words its nearer-side count
+     needs, chars, positions and out; operations: 8 a counted nibble
+     word, 16 a K0 word) and the up-side bound (every query counting up
+     from its row's counter) beside it; then the turn edges of both tables
+     (per_row/2 - 1, per_row/2, per_row/2 + 1 of every row, the last
+     row's upper half past n) == plain;
      2w. the index-level drop-ins for rank_batch, each == rank_batch
          exactly, on the headline index (phase 2's random queries in
          [0, n] plus every row edge of every table below) and on an index
@@ -24,12 +31,12 @@ Phases, each of which raises on failure (exit status non-zero):
          at 128, 512, 2048, 4096 and 130 words a row (128: the 128-word
          nibble kernel; the other widths: the any-width kernel, one launch
          a call), rank_pallas (K0) and rank_xla (the plain row gather, no
-         kernel); the launches of that run are counted; then each kernel
-         == its plain version, timed by CUDA events (raw launch; plain)
-         with its bound (bytes: the distinct 32-byte sectors under each
-         query's counter word and the symbol words below its position,
-         chars, positions and out; operations: 8 a counted nibble word,
-         16 a K0 word); backward_step on the card over 4,096 random
+         kernel); the launches of that run are counted; then at each
+         width the turn edges == plain (those <= n through every drop-in
+         == rank_batch), and each kernel == its plain version, timed by
+         CUDA events (raw launch; plain: the one cold call that gives the
+         reference) with its nearer-side bound and the up-side bound
+         beside it; backward_step on the card over 4,096 random
          20-mers of the headline reference == the same steps on a CPU copy
          of the index, every 20-mer found; and examples/demo_torch.py
          run on the card (its save/load and 4-slab listings identical);
@@ -288,8 +295,9 @@ def _kernel_vs_plain(rank, name: str, rows, chars, positions,
     """Exact check of a rank wrapper (``rank_rows`` or ``rank_rows_nib``)
     against its plain version, then times: the raw kernel launch, the
     wrapper (with its argument checks) and plain; and the kernel's lower
-    bound on this input (bytes: each touched row once, chars, positions
-    and out; operations: the kernel's integer work per symbol word)."""
+    bound on this input (``_sector_bound``: the sectors and words each
+    query's nearer-side count needs), with the up-side bound (every query
+    counting up from its row's counter) beside it."""
     import torch
 
     wrapper = getattr(rank, name)
@@ -306,11 +314,12 @@ def _kernel_vs_plain(rank, name: str, rows, chars, positions,
     fn = kernel.nib_fn if nib else kernel.fn
     out = torch.empty_like(positions)
     nq = positions.numel()
+    nrows = int(rows.shape[0])
     stream = torch.cuda.current_stream().cuda_stream
 
     def raw():
         if fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
-              out.data_ptr(), nq, stream):
+              out.data_ptr(), nq, nrows, stream):
             raise RuntimeError(f"{name} launch failed")
 
     ms = _cuda_ms(raw, 50)
@@ -321,24 +330,56 @@ def _kernel_vs_plain(rank, name: str, rows, chars, positions,
     touched = int(torch.unique(torch.div(
         positions, syms_per_row, rounding_mode="floor")).numel())
     row_bytes = int(rows.shape[1]) * 4
-    bound_bytes = touched * row_bytes + 3 * 4 * nq
     # per symbol word: nib xor, and, add, or, andnot, mask, popc, add (8);
     # K0 extract, compare, position test, add per byte (4 x 4)
-    bound_ops = nq * words * (8 if nib else 16)
-    bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = bound_ops / SCALAR_OPS_PER_S * 1e3
+    ops_per_word = 8 if nib else 16
+    bound = _sector_bound(rows, chars, positions, 8 if nib else 4,
+                          ops_per_word)
+    up = _sector_bound(rows, chars, positions, 8 if nib else 4, ops_per_word,
+                       nearer=False)
     gbps = row_bytes * nq / (ms * 1e-3) / 1e9
     plain_gbps = row_bytes * nq / (plain_ms * 1e-3) / 1e9
     _log(f"[rank] {name} {label}: {nq} queries, table {rows.numel() * 4} B "
          f"({touched} rows touched); kernel {ms:.6f} ms ({gbps:.2f} GB/s at "
          f"{row_bytes} B/query), wrapper {wrapper_ms:.6f} ms, plain "
          f"{plain_ms:.6f} ms ({plain_gbps:.2f} GB/s); bound "
-         f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bound_bytes}: "
-         f"{bytes_ms:.6f} ms, ops {bound_ops}: {ops_ms:.6f} ms); exact")
+         f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: "
+         f"{bound['sectors']} sectors, {bound['bound_ops']} ops; nearer "
+         f"side), up side {up['bound_ms']:.6f} ms ({up['bound_by']}: "
+         f"{up['sectors']} sectors, {up['bound_ops']} ops); exact")
     return {"queries": nq, "ms": ms, "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms, "gb_per_s": gbps, "max_abs_err": err,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "sectors": bound["sectors"], "up_bound_ms": up["bound_ms"]}
+
+
+def _turn_edges(n: int, nrows: int, per_row: int, device):
+    """Positions where a standalone kernel's count turns: per_row/2 - 1,
+    per_row/2 and per_row/2 + 1 of every row (up to down), and up to 64
+    of the last row's upper half past n (which counts up), each with every
+    c: (chars, positions) int32."""
+    import torch
+
+    half = torch.arange(nrows, device=device) * per_row + per_row // 2
+    past = torch.arange(max(n + 1, int(half[-1]) - 1), nrows * per_row,
+                        device=device)
+    past = past[torch.linspace(0, past.numel() - 1, min(past.numel(), 64),
+                               device=device).long()]
+    pos = torch.cat([half - 1, half, half + 1, past]).to(torch.int32)
+    return (torch.arange(4, dtype=torch.int32, device=device).repeat(
+        pos.numel()), pos.repeat_interleave(4))
+
+
+def _edges_exact(rank, name: str, rows, n: int, per_row: int,
+                 label: str) -> int:
+    """Phase 2's turn edges (``_turn_edges``) through a standalone kernel's
+    wrapper == its plain version; returns their count."""
+    chars, positions = _turn_edges(n, int(rows.shape[0]), per_row,
+                                   rows.device)
+    _exact(f"2 {name} {label} turn edges",
+           (getattr(rank, name)(rows, chars, positions),),
+           (getattr(rank, name + "_plain")(rows, chars, positions),))
+    return int(positions.numel())
 
 
 def _bwt_index(bwt):
@@ -364,33 +405,45 @@ def _bwt_index(bwt):
 
 
 def _sector_bound(rows, chars, positions, syms_per_word: int,
-                  ops_per_word: int) -> dict:
+                  ops_per_word: int, nearer: bool = True) -> dict:
     """Bound of a row count (nibble table of any width: 8 symbols a word,
     K0: 4) on these queries: bytes = the distinct 32-byte sectors holding
-    a query's counter word or a symbol word below its position (each read
+    a query's counter word or one of its counted symbol words (each read
     once) + chars, positions and out (12 B a query); operations =
-    ``ops_per_word`` a counted symbol word."""
+    ``ops_per_word`` a counted symbol word. ``nearer`` (the standalone
+    kernels' count): a position in its row's upper half, outside the
+    table's last row, counts the words from the one that holds it to the
+    row's end, from the next row's counter; any other counts the words
+    below it, from its row's counter. Else every query counts up (the
+    up-side figure)."""
     import torch
 
     width = int(rows.shape[1])
-    per_row = (width - 4) * syms_per_word
+    nw = width - 4
+    per_row = nw * syms_per_word
     p, c = positions.long(), chars.long()
     b = torch.div(p, per_row, rounding_mode="floor")
-    words = (p - b * per_row + syms_per_word - 1) // syms_per_word
-    row = rows.data_ptr() % 32 + b * width * 4     # byte of the row
-    nsec = (rows.data_ptr() % 32 + rows.numel() * 4 + 31) // 32
+    w = p - b * per_row
+    up_hi = (w + syms_per_word - 1) // syms_per_word
+    down = (w >= per_row // 2) & (b < rows.shape[0] - 1) if nearer else \
+        torch.zeros_like(p, dtype=torch.bool)
+    lo = torch.where(down, w // syms_per_word, 0)
+    hi = torch.where(down, nw, up_hi)
+    base = rows.data_ptr() % 32
+    row = base + b * width * 4                     # byte of the row
+    nsec = (base + rows.numel() * 4 + 31) // 32
     hit = torch.zeros(nsec + 1, dtype=torch.int32, device=p.device)
-    has = words > 0
-    first = (row + 16) // 32
-    last = (row + 16 + 4 * words - 1) // 32
+    has = hi > lo
+    first = (row + 16 + 4 * lo) // 32
+    last = (row + 16 + 4 * hi - 1) // 32
     ones = torch.ones_like(first, dtype=torch.int32)
     hit.index_add_(0, first[has], ones[has])
     hit.index_add_(0, last[has] + 1, -ones[has])
     covered = torch.cumsum(hit, 0)[:nsec] > 0
-    covered[(row + 4 * c) // 32] = True           # the counter words
+    covered[(row + down * width * 4 + 4 * c) // 32] = True  # the counters
     sectors = int(covered.sum())
     out = _bound(32 * sectors + 12 * p.numel(),
-                 ops_per_word * int(words.sum()))
+                 ops_per_word * int((hi - lo).sum()))
     out["sectors"] = sectors
     return out
 
@@ -399,7 +452,9 @@ def _phase_2w(rank, build, pack2, tables: dict) -> dict:
     """Phase 2w on each of ``tables`` (label -> (index, chars,
     positions)): every drop-in == rank_batch, the counts set to 0 just
     before and read just after (the main path of the any-width kernel);
-    then each kernel == its plain version, timed, with its bound."""
+    then at each width the turn edges (``_turn_edges``) == plain (and,
+    those <= n, every drop-in == rank_batch), and each kernel == its
+    plain version, timed, with its bound."""
     import torch
 
     _reset_launches(rank, pack2)
@@ -424,41 +479,78 @@ def _phase_2w(rank, build, pack2, tables: dict) -> dict:
     kernel = rank.load_kernel()
     out = {"launches": launches}
     for label, (index, chars, positions) in tables.items():
+        turns = []   # each width's turn edges <= n
         for w in NIB_WIDTHS + ("k0",):
             rows = rank.interleaved_rows(index) if w == "k0" else \
                 rank.nibble_rows(index, w)
             plain = rank.rank_rows_plain if w == "k0" else \
                 rank.rank_rows_nib_plain
-            want = plain(rows, chars, positions)
-            res = torch.empty_like(positions)
-            nq = positions.numel()
             fn, extra = ((kernel.fn, ()) if w == "k0" else
                          (kernel.nib_fn, ()) if w == rank.ROW_WORDS else
                          (kernel.nib_any_fn, (w,)))
+            nrows = int(rows.shape[0])
+
+            def launch(c, p, res):
+                if fn(rows.data_ptr(), c.data_ptr(), p.data_ptr(),
+                      res.data_ptr(), p.numel(), nrows, *extra, stream):
+                    raise RuntimeError(f"2w {label} {w}: launch failed")
+                return res
+
+            # the turn edges of this table (the last row's past n too)
+            per_row = rank.SYMS_PER_ROW if w == "k0" else \
+                rank._nib_per_row(w)
+            tc, tp = _turn_edges(index.n, nrows, per_row, positions.device)
+            _exact(f"2w {label} {w} turn edges",
+                   (launch(tc, tp, torch.empty_like(tp)),),
+                   (plain(rows, tc, tp),))
+            turns.append(tp[tp <= index.n])
+            del tc, tp
+            # one cold plain call, timed, gives the reference
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain(rows, chars, positions)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            res = torch.empty_like(positions)
+            nq = positions.numel()
 
             def raw():
-                if fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
-                      res.data_ptr(), nq, *extra, stream):
-                    raise RuntimeError(f"2w {label} {w}: launch failed")
+                launch(chars, positions, res)
 
             raw()
             err = _exact(f"2w {label} {w} kernel", (res,), (want,))
             ms = _cuda_ms(raw, 20)
-            plain_ms = _cuda_ms(lambda: plain(rows, chars, positions), 2)
-            bound = _sector_bound(rows, chars, positions,
-                                  4 if w == "k0" else 8,
-                                  16 if w == "k0" else 8)
+            spw, opw = (4, 16) if w == "k0" else (8, 8)
+            bound = _sector_bound(rows, chars, positions, spw, opw)
+            up = _sector_bound(rows, chars, positions, spw, opw,
+                               nearer=False)
             out[f"{label} {w}"] = rec = {
                 "queries": nq, "ms": ms, "plain_ms": plain_ms,
                 "max_abs_err": err, "table_bytes": rows.numel() * 4,
-                **bound}
+                **bound, "up_bound_ms": up["bound_ms"],
+                "up_bound_by": up["bound_by"], "up_sectors": up["sectors"]}
             _log(f"[2w] {label}, {'K0' if w == 'k0' else f'nib {w} words'}"
                  f": {nq} queries, table {rec['table_bytes']} B; kernel "
-                 f"{ms:.6f} ms, plain {plain_ms:.6f} ms; bound "
-                 f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: "
-                 f"{bound['sectors']} sectors, {bound['bound_ops']} ops); "
-                 f"exact")
+                 f"{ms:.6f} ms, plain {plain_ms:.6f} ms (one cold call); "
+                 f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}: "
+                 f"{bound['sectors']} sectors, {bound['bound_ops']} ops; "
+                 f"nearer side), up side {up['bound_ms']:.6f} ms "
+                 f"({up['bound_by']}: {up['sectors']} sectors, "
+                 f"{up['bound_ops']} ops); exact")
             del rows, want, res
+        tp = torch.unique(torch.cat(turns))
+        tc = torch.arange(4, dtype=torch.int32, device=tp.device).repeat(
+            tp.numel())
+        tp = tp.repeat_interleave(4)
+        want = build.rank_batch(index, tc, tp)
+        for name, call in _drop_ins(rank, index, tc, tp):
+            _exact(f"2w {label} turn edges {name}", (call(),), (want,))
+        _log(f"[2w] {label}: turn edges (half-row, last row past n) == "
+             f"plain at every width; the {tp.numel()} (c, j) of those <= n "
+             f"through every drop-in == rank_batch")
+        del tc, tp, want, turns
     return out
 
 
@@ -2013,6 +2105,14 @@ def run() -> int:
         hbm = _kernel_vs_plain(rank, name, rows_big, rand_c, pos_big,
                                f"random, 200 M-symbol table "
                                f"({rows_big.numel() * 4} B > L2)")
+        turns = {"5 Mbp": _edges_exact(rank, name, rows, n, per_row,
+                                       "5 Mbp table"),
+                 "200 M-symbol": _edges_exact(rank, name, rows_big,
+                                              bwt_big.numel(), per_row,
+                                              "200 M-symbol table")}
+        _log(f"[rank] {name}: turn edges (per_row/2 - 1, per_row/2, "
+             f"per_row/2 + 1 of every row, the last row past n) == plain: "
+             f"{turns}")
         checks[name] = {"big": big, "shape": shape, "hbm": hbm}
         del rows, rows_big
 
@@ -2459,11 +2559,14 @@ def run() -> int:
 
     for name, c in checks.items():
         _log(f"[rank] {name}: 4M random queries: kernel {c['big']['ms']:.6f}"
-             f" ms ({c['big']['gb_per_s']:.2f} GB/s) vs plain "
+             f" ms ({c['big']['gb_per_s']:.2f} GB/s, bound "
+             f"{c['big']['bound_ms']:.6f} ms, up side "
+             f"{c['big']['up_bound_ms']:.6f} ms) vs plain "
              f"{c['big']['plain_ms']:.6f} ms; > L2 table: kernel "
              f"{c['hbm']['ms']:.6f} ms ({c['hbm']['gb_per_s']:.2f} GB/s, "
-             f"bound {c['hbm']['bound_ms']:.6f} ms) vs plain "
-             f"{c['hbm']['plain_ms']:.6f} ms")
+             f"bound {c['hbm']['bound_ms']:.6f} ms, up side "
+             f"{c['hbm']['up_bound_ms']:.6f} ms) vs plain "
+             f"{c['hbm']['plain_ms']:.6f} ms; {smi}")
     for layout, c in scans.items():
         _log(f"[scan 2s] scan_lanes_{layout}: one 4M chunk {c['ms']:.6f} ms "
              f"vs plain loop {c['plain_ms']:.3f} ms; bound "
@@ -2490,6 +2593,10 @@ def run() -> int:
             "ms": c["shape"]["ms"], "plain_ms": c["shape"]["plain_ms"],
             "bound_ms": c["shape"]["bound_ms"],
             "bound_by": c["shape"]["bound_by"],
+            "up_bound_ms": c["shape"]["up_bound_ms"],
+            "4m_queries": {k: {f: c[k][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "up_bound_ms")}
+                for k in ("big", "hbm")},
             "library_ms": None})   # no one PyTorch call computes occ
     # the scan kernel on one full 4M chunk (2s); launches: phase 3 / 3k
     for layout, tpu in (("k0", "slamem_tpu/kernels/rank.py:87"),
@@ -2516,9 +2623,9 @@ def run() -> int:
         "max_abs_err": max(v["max_abs_err"] for k, v in drop.items()
                            if isinstance(v, dict) and "max_abs_err" in v),
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-        "bound_by": c["bound_by"],
+        "bound_by": c["bound_by"], "up_bound_ms": c["up_bound_ms"],
         "widths": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by")}
+                                         "bound_by", "up_bound_ms")}
                    for k, v in drop.items() if isinstance(v, dict)
                    and "ms" in v and not k.endswith((" 128", " k0"))},
         "library_ms": None})   # no one PyTorch call computes occ

@@ -226,15 +226,17 @@ def load_kernel() -> _Kernel:
     (every entry point of ``csrc/rank.cu``)."""
     path, log = build_nvcc(_SOURCE, "rank")
     lib = ctypes.CDLL(str(path))
+    # (rows, chars, positions, out, nq, nrows[, row_words], stream)
     fn = lib.slamem_rank_rows
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int32,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     nib_fn = lib.slamem_rank_rows_nib
-    nib_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    nib_fn.argtypes = fn.argtypes
     nib_fn.restype = ctypes.c_int
     nib_any_fn = lib.slamem_rank_rows_nib_any
     nib_any_fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
     nib_any_fn.restype = ctypes.c_int
     scan_fns = {}
     for layout in SCAN_LAYOUTS:
@@ -295,7 +297,8 @@ def _check(rows: torch.Tensor, chars: torch.Tensor, positions: torch.Tensor,
 def _launch(fn, rows: torch.Tensor, chars: torch.Tensor,
             positions: torch.Tensor, *width) -> torch.Tensor:
     """Launch one entry point on the current stream of the rows' card
-    (``width``: the row width, for the any-width entry)."""
+    (the table's row count for the last-row rule; ``width``: the row
+    width, for the any-width entry)."""
     out = torch.empty_like(positions)
     nq = positions.numel()
     if nq == 0:
@@ -303,7 +306,7 @@ def _launch(fn, rows: torch.Tensor, chars: torch.Tensor,
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = fn(rows.data_ptr(), chars.data_ptr(), positions.data_ptr(),
-                 out.data_ptr(), nq, *width, stream)
+                 out.data_ptr(), nq, rows.shape[0], *width, stream)
     if err != 0:
         raise RuntimeError(f"rank kernel launch failed: CUDA error {err}")
     return out

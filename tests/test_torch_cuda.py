@@ -55,22 +55,64 @@ def cuda():
     return torch.device("cuda")
 
 
+# queries a call besides the whole batch: a ragged last warp of 1, 31, 33
+# and 32k + 17 queries
+NQ_CUTS = (1, 31, 33, 32 * 1000 + 17)
+
+
+def _edge_positions(n, nrows, per_row):
+    """Every row's start, its neighbours and the half-row positions
+    per_row/2 - 1, per_row/2 and per_row/2 + 1 (where the count turns from
+    up to down), 0, 1, 7-9, n - 1, n, and the last row's upper half past
+    n (which counts up), clipped to the table's span."""
+    span = nrows * per_row
+    starts = np.arange(nrows) * per_row
+    half = starts + per_row // 2
+    past = np.arange(max(n + 1, half[-1] - 1), span)
+    past = past[np.linspace(0, past.size - 1, min(past.size, 64)).astype(
+        np.int64)]
+    return np.unique(np.clip(np.concatenate(
+        [starts, starts + 1, starts - 1, half - 1, half, half + 1, past,
+         [0, 1, 7, 8, 9, n - 1, n, span - 1]]), 0, span - 1))
+
+
+def _queries(cuda, rng, edge, high, count=100_000):
+    """Each edge position with every c, then ``count`` random queries with
+    positions in [0, high); int32 on the card."""
+    pos = np.concatenate([np.repeat(edge, 4), rng.integers(0, high, count)])
+    chars = np.concatenate([np.tile(np.arange(4), edge.size),
+                            rng.integers(0, 4, count)])
+    return (torch.from_numpy(chars.astype(np.int32)).to(cuda),
+            torch.from_numpy(pos.astype(np.int32)).to(cuda))
+
+
+def _cuts_equal_plain(wrapper, plain, rows, c, p):
+    """The wrapper == plain on the first 1, 31, 33 and 32k + 17 queries
+    (the edges come first)."""
+    for nq in NQ_CUTS:
+        got = wrapper(rows, c[:nq], p[:nq])
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(rows, c[:nq], p[:nq])), nq
+
+
 def test_rank_kernel_equals_plain(cuda):
+    """K0 == its plain version and rank_batch on random queries and every
+    row edge (the half-row turns, the last row's upper half past n); and
+    on ragged batches."""
     t = with_n_runs(random_genome(60_000, seed=148), 2, 30, seed=149)
     idx = build_index(t, device=cuda)
     rows = rank.interleaved_rows(idx)
     rng = np.random.default_rng(147)
-    pos = np.concatenate([rng.integers(0, idx.n + 1, 100_000),
-                          [0, 1, 495, 496, 497, idx.n - 1, idx.n]])
-    chars = rng.integers(0, 4, pos.size)
-    p = torch.from_numpy(pos.astype(np.int32)).to(cuda)
-    c = torch.from_numpy(chars.astype(np.int32)).to(cuda)
+    edge = _edge_positions(idx.n, rows.shape[0], rank.SYMS_PER_ROW)
+    c, p = _queries(cuda, rng, edge, idx.n + 1)
     before = rank.rank_rows.launches
     got = rank.rank_rows(rows, c, p)
     torch.cuda.synchronize()
     assert rank.rank_rows.launches == before + 1
     assert torch.equal(got, rank.rank_rows_plain(rows, c, p))
-    assert torch.equal(got, rank_batch(idx, c, p))
+    inside = p <= idx.n
+    assert torch.equal(got[inside], rank_batch(idx, c[inside], p[inside]))
+    _cuts_equal_plain(rank.rank_rows, rank.rank_rows_plain, rows, c, p)
     with pytest.raises(ValueError):
         rank.rank_rows(rows, c, p.cpu())
 
@@ -78,24 +120,17 @@ def test_rank_kernel_equals_plain(cuda):
 @pytest.mark.parametrize("n", [60_000, 250_000])
 def test_nib_kernel_equals_plain(cuda, n):
     """The nibble kernel == its plain version on random queries and every
-    row edge (row starts, their neighbours, n, the table's last
-    position)."""
+    row edge (row starts, their neighbours, the half-row turns, n, the
+    last row's upper half past n, the table's last position); and on
+    ragged batches."""
     t = with_n_runs(random_genome(n, seed=160), 2, 30, seed=161)
     idx = build_index(t, device=cuda)
     rows = rank.nibble_rows(idx)
     nib_per = rank.NIB_PER_ROW
     span = rows.shape[0] * nib_per
-    starts = np.arange(rows.shape[0]) * nib_per
     rng = np.random.default_rng(162)
-    edge = np.unique(np.clip(np.concatenate(
-        [starts, starts + 1, starts - 1, [0, 1, idx.n - 1, idx.n, span - 1]]),
-        0, span - 1))
-    pos = np.concatenate([rng.integers(0, span, 100_000),
-                          np.repeat(edge, 4)])
-    chars = np.concatenate([rng.integers(0, 4, 100_000),
-                            np.tile(np.arange(4), edge.size)])
-    p = torch.from_numpy(pos.astype(np.int32)).to(cuda)
-    c = torch.from_numpy(chars.astype(np.int32)).to(cuda)
+    edge = _edge_positions(idx.n, rows.shape[0], nib_per)
+    c, p = _queries(cuda, rng, edge, span)
     before = rank.rank_rows_nib.launches
     got = rank.rank_rows_nib(rows, c, p)
     torch.cuda.synchronize()
@@ -103,35 +138,31 @@ def test_nib_kernel_equals_plain(cuda, n):
     assert torch.equal(got, rank.rank_rows_nib_plain(rows, c, p))
     inside = p <= idx.n
     assert torch.equal(got[inside], rank_batch(idx, c[inside], p[inside]))
+    _cuts_equal_plain(rank.rank_rows_nib, rank.rank_rows_nib_plain, rows, c,
+                      p)
 
 
 @pytest.mark.parametrize("row_words", [512, 2048, 4096, 130, 5, 131])
-@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
 def test_nib_any_width_kernel_equals_plain(cuda, row_words, offset):
     """The any-width nibble kernel (rank_nib / rank_rows_nib at a width
     other than 128) == its plain version and rank_batch on random queries
-    and every row edge, on a table at a 16-byte (offset 0) or a 4-byte
-    (offset 1 word) address; it alone launches, once a call."""
+    and every row edge (the half-row turns, the last row's upper half past
+    n), on a table at 0-3 words past a 16-byte boundary; it alone
+    launches, once a call; and == plain on ragged batches."""
     t = with_n_runs(random_genome(250_000, seed=166), 2, 30, seed=167)
     idx = build_index(t, device=cuda)
     table = rank.nibble_rows(idx, row_words)
     buf = torch.empty(table.numel() + offset, dtype=torch.int32,
                       device=cuda)
+    assert buf.data_ptr() % 16 == 0
     rows = buf[offset:].view(table.shape)
     rows.copy_(table)
     per_row = rank._nib_per_row(row_words)
     span = rows.shape[0] * per_row
-    starts = np.arange(0, span, per_row)
     rng = np.random.default_rng(row_words)
-    edge = np.unique(np.clip(np.concatenate(
-        [starts, starts + 1, starts - 1, starts + per_row // 2,
-         [0, 1, 7, 8, 9, idx.n - 1, idx.n, span - 1]]), 0, span - 1))
-    pos = np.concatenate([rng.integers(0, span, 100_000),
-                          np.repeat(edge, 4)])
-    chars = np.concatenate([rng.integers(0, 4, 100_000),
-                            np.tile(np.arange(4), edge.size)])
-    p = torch.from_numpy(pos.astype(np.int32)).to(cuda)
-    c = torch.from_numpy(chars.astype(np.int32)).to(cuda)
+    edge = _edge_positions(idx.n, rows.shape[0], per_row)
+    c, p = _queries(cuda, rng, edge, span)
     _reset_launches()
     got = rank.rank_rows_nib(rows, c, p)
     torch.cuda.synchronize()
@@ -144,6 +175,8 @@ def test_nib_any_width_kernel_equals_plain(cuda, row_words, offset):
         assert torch.equal(rank.rank_nib(idx, c[inside], p[inside],
                                          row_words=row_words), got[inside])
         assert rank.rank_rows_nib.any_launches == 2
+    _cuts_equal_plain(rank.rank_rows_nib, rank.rank_rows_nib_plain, rows, c,
+                      p)
 
 
 def test_index_drop_ins_on_cuda(cuda):
