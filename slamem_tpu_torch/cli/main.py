@@ -29,6 +29,8 @@ import os
 import sys
 
 from slamem_tpu_torch.config import Config, MatchMode
+from slamem_tpu_torch.utils.log import PhaseLog, span
+from slamem_tpu_torch.utils.profile import maybe_trace
 
 
 class CliError(Exception):
@@ -171,7 +173,14 @@ def main(argv: list[str] | None = None) -> int:
     except CliError as e:
         print(str(e), file=sys.stderr)
         return 2
+    # the job's spans, read to write (printed with -v), and with
+    # SLAMEM_TRACE_DIR one trace of the whole job
+    with PhaseLog(enabled=cfg.verbose).activate(), maybe_trace("job"):
+        return _job(cfg, ref_path, query_paths, extras)
 
+
+def _job(cfg: Config, ref_path: str, query_paths: list[str],
+         extras: dict) -> int:
     # deferred so -h stays fast
     import numpy as np
 
@@ -253,13 +262,16 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     if not is_output_process():
         return 0   # every rank computed the same result; rank 0 writes it
-    text = format_matches(out)
+    with span("render") as rec:
+        text = format_matches(out)
+        rec["bytes"] = len(text)
     out_path = cfg.out_path or default_out_path(query_paths, cfg)
-    if out_path == "-":
-        sys.stdout.write(text)
-    else:
-        with open(out_path, "w") as f:
-            f.write(text)
+    with span("write", bytes=len(text)):
+        if out_path == "-":
+            sys.stdout.write(text)
+        else:
+            with open(out_path, "w") as f:
+                f.write(text)
     if cfg.dotplot_path:
         from slamem_tpu_torch.report.dotplot import write_dotplot
 

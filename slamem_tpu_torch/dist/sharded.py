@@ -287,7 +287,7 @@ def _find_seed_matches_virtual(index, query_text: np.ndarray, cfg: Config,
     span filter only when one block covers every sample (no run can be cut
     by a block edge), and the tail filters after its merge across blocks.
     """
-    clock = StageClock(index.device)
+    clock = StageClock(index.device, cfg.verbose)
     qp, qt = seed_mode.query_to_device(query_text, index.device)
     clock.mark("upload")
     m = int(qp.shape[0])
@@ -483,7 +483,7 @@ def find_seed_matches_sharded_mesh(index, query_text: np.ndarray,
     empty fragments and joins every collective. Stages as the virtual
     path's, plus ``gather`` (the collectives).
     """
-    clock = StageClock(index.device)
+    clock = StageClock(index.device, cfg.verbose)
     qp, qt = seed_mode.query_to_device(query_text, index.device)
     clock.mark("upload")
     m = int(qp.shape[0])

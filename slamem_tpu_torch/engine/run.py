@@ -23,7 +23,7 @@ from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.index.build import FMIndex, build_index
 from slamem_tpu_torch.io.fasta import FastaSet, revcomp_codes
 from slamem_tpu_torch.utils.device import resolve_device, synchronize
-from slamem_tpu_torch.utils.log import NULL_LOG, PhaseLog
+from slamem_tpu_torch.utils.log import PhaseLog, active_log
 from slamem_tpu_torch.utils.profile import maybe_trace
 
 
@@ -80,14 +80,16 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
     lie there).
 
     ``mesh`` (dist/mesh.py) runs the seed engine over its ranks; every rank
-    calls run_engine with the same inputs and gets the same output. With
-    ``cfg.verbose`` each phase (index build, query) prints a PhaseLog line
-    (utils/log.py); ``SLAMEM_TRACE_DIR`` traces the queries
+    calls run_engine with the same inputs and gets the same output. Its
+    phases (``index_build``, ``join``, ``query``, ``emit``) go to the
+    active PhaseLog (utils/log.py), or to a log of this call's own, which
+    prints them with ``cfg.verbose``; ``stats['phases']`` holds this
+    call's records. ``SLAMEM_TRACE_DIR`` traces the queries
     (utils/profile.py).
     """
     dev = resolve_device(device)
-    log = (PhaseLog(enabled=True, device_rates=dev.type == "cuda")
-           if cfg.verbose else NULL_LOG)
+    log = active_log() or PhaseLog(enabled=cfg.verbose)
+    n_records = len(log.records)
     t0 = time.perf_counter()
     rtext, rstarts = ref_set.with_separators()
     with log.phase("index_build", bp=len(rtext)):
@@ -138,31 +140,36 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
             # query-coordinate range is disjoint from every other entry's.
             entries = [(qi, rev) for qi in range(query_set.num_seqs)
                        for rev in strands]
-            parts = []
-            for qi, rev in entries:
-                codes = query_set.sequence(qi).codes
-                parts.append(revcomp_codes(codes) if rev else codes)
-            lengths = np.array([len(p) for p in parts], dtype=np.int64)
-            joined = FastaSet(
-                names=[f"{qi}/{rev}" for qi, rev in entries],
-                starts=np.concatenate(([0], np.cumsum(lengths)[:-1])),
-                lengths=lengths, codes=np.concatenate(parts))
-            qtext, qstarts = joined.with_separators()
+            with log.phase("join", entries=len(entries)):
+                parts = []
+                for qi, rev in entries:
+                    codes = query_set.sequence(qi).codes
+                    parts.append(revcomp_codes(codes) if rev else codes)
+                lengths = np.array([len(p) for p in parts], dtype=np.int64)
+                joined = FastaSet(
+                    names=[f"{qi}/{rev}" for qi, rev in entries],
+                    starts=np.concatenate(([0], np.cumsum(lengths)[:-1])),
+                    lengths=lengths, codes=np.concatenate(parts))
+                qtext, qstarts = joined.with_separators()
             qbp += int(query_set.lengths.sum()) * len(strands)
             m = _search(qtext, entries=len(entries))
-            entry_of_match = np.searchsorted(qstarts, m.qpos,
-                                             side="right") - 1
-            for e, (qi, rev) in enumerate(entries):  # ref emission order
-                sel = entry_of_match == e
-                sub = seed_mode.apply_mode_filter(seed_mode.SeedMatches(
-                    m.refpos[sel], m.qpos[sel], m.length[sel]), cfg)
-                _emit(qi, rev, sub, int(qstarts[e]))
+            with log.phase("emit") as rec:
+                entry_of_match = np.searchsorted(qstarts, m.qpos,
+                                                 side="right") - 1
+                for e, (qi, rev) in enumerate(entries):  # ref emission order
+                    sel = entry_of_match == e
+                    sub = seed_mode.apply_mode_filter(seed_mode.SeedMatches(
+                        m.refpos[sel], m.qpos[sel], m.length[sel]), cfg)
+                    _emit(qi, rev, sub, int(qstarts[e]))
+                rec["matches"] = total
         else:
             for qi in range(query_set.num_seqs):
                 qcodes = query_set.sequence(qi).codes
                 qbp += len(qcodes)
                 m = _search(qcodes, seq=query_set.names[qi], reverse=False)
-                _emit(qi, False, seed_mode.apply_mode_filter(m, cfg), 0)
+                with log.phase("emit") as rec:
+                    _emit(qi, False, seed_mode.apply_mode_filter(m, cfg), 0)
+                    rec["matches"] = total
         synchronize(dev)
     t_query = time.perf_counter() - t1
     stats = {
@@ -173,7 +180,7 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
         "query_mbp_per_s": (qbp / 1e6) / t_query if t_query > 0 else 0.0,
         "device": str(dev),
         "searches": searches,
-        "phases": log.records,
+        "phases": log.records[n_records:],
     }
     return EngineOutput(ref_names=ref_set.names, per_query=per_query,
                         stats=stats)

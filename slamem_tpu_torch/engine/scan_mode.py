@@ -233,7 +233,7 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray, cfg: Config,
     """Scan frontend + shared pair/run backend (see seed_mode); ``mesh``
     goes on to the backend, as in the JAX package."""
     L = cfg.min_length
-    clock = seed_mode.StageClock(index.device)
+    clock = seed_mode.StageClock(index.device, cfg.verbose)
     # N-padding: no spurious intervals
     qp, qt = seed_mode.query_to_device(query_text, index.device)
     clock.mark("upload")

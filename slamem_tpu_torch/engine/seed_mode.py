@@ -75,19 +75,24 @@ _PAD_WORD0 = (1 << 32) - 1
 
 
 class StageClock:
-    """Device-synchronised stage times in seconds (``stats['stage_s']``).
+    """Stage times in seconds (``stats['stage_s']``).
 
-    Each mark waits for the device, so a stage's time includes its kernels,
-    not only their launch; a handful of marks per query cost microseconds.
+    With ``verbose`` (``cfg.verbose``, ``-v``) or under a running torch
+    profiler, each mark waits for the device, so a stage's time includes
+    its kernels, not only their launch. Otherwise a mark reads the host's
+    clock alone: the stage's host seconds, launches and the host reads
+    that wait for the card, and the device runs on unsynchronised.
     """
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, verbose: bool = False) -> None:
         self.device = device
+        self.sync = verbose or torch._C._autograd._profiler_enabled()
         self.stage_s: dict[str, float] = {}
         self._t = time.perf_counter()
 
     def mark(self, stage: str) -> None:
-        synchronize(self.device)
+        if self.sync:
+            synchronize(self.device)
         now = time.perf_counter()
         self.stage_s[stage] = self.stage_s.get(stage, 0.0) + now - self._t
         self._t = now
@@ -1153,8 +1158,9 @@ def find_seed_matches(index, query_text: np.ndarray, cfg: Config,
     (packing + bucket or join search) -> pairs_to_matches, whose device
     tail (merge, span filter, extension, length keep) fetches only the
     kept matches.
-    ``stats`` carries the plan and the device-synchronised time of each
-    stage. A ``mesh`` of more than one rank (dist/mesh.py) runs the rounds
+    ``stats`` carries the plan and the time of each stage (StageClock:
+    device-synchronised with ``cfg.verbose`` or under a profiler). A
+    ``mesh`` of more than one rank (dist/mesh.py) runs the rounds
     data-parallel over its ranks (pairs_to_matches); with no mesh or one
     rank the path is the single-device one, as in the JAX package.
     """
@@ -1173,7 +1179,7 @@ def find_seed_matches_mesh(index, query_text: np.ndarray, cfg: Config,
 
 def _find_seed_matches(index, query_text: np.ndarray, cfg: Config,
                        backend) -> SeedMatches:
-    clock = StageClock(index.device)
+    clock = StageClock(index.device, cfg.verbose)
     qp, qt = query_to_device(query_text, index.device)
     clock.mark("upload")
     m_p = int(qp.shape[0])
@@ -1259,7 +1265,7 @@ def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
     if sa_aug is None:
         sa_aug = index.sa  # all rows valid
     if clock is None:
-        clock = StageClock(index.device)
+        clock = StageClock(index.device, cfg.verbose)
     total, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
     if use_boundary:
         bb = BoundaryBatch()
@@ -1308,7 +1314,7 @@ def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
     if sa_aug is None:
         sa_aug = index.sa  # all rows valid
     if clock is None:
-        clock = StageClock(index.device)
+        clock = StageClock(index.device, cfg.verbose)
     _, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
     m_s = int(lo.shape[0])
     frags = []

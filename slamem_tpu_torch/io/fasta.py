@@ -26,6 +26,8 @@ import os
 
 import numpy as np
 
+from slamem_tpu_torch.utils.log import span
+
 CODE_A = 0
 CODE_C = 1
 CODE_G = 2
@@ -159,16 +161,24 @@ def parse_fasta_bytes(buf: bytes, source: str = "<bytes>") -> FastaSet:
 
 def read_fasta(path: str | os.PathLike) -> FastaSet:
     """Read a (multi-)FASTA file, transparently gunzipping .gz inputs, with
-    the native parser (a failed build of it raises)."""
+    the native parser (a failed build of it raises). Spans ``fasta_read``
+    (open, read, gunzip; ``bytes`` handed to the parser) and
+    ``fasta_parse`` (``bp``, ``seqs``) of the active PhaseLog."""
     from slamem_tpu_torch._native import fastaio
 
-    with open(path, "rb") as f:
-        buf = f.read()
-    if buf[:2] == b"\x1f\x8b":  # gzip magic
-        import gzip
+    with span("fasta_read") as rec:
+        with open(path, "rb") as f:
+            buf = f.read()
+        if buf[:2] == b"\x1f\x8b":  # gzip magic
+            import gzip
 
-        buf = gzip.decompress(buf)
-    return fastaio.parse(buf, str(path))
+            buf = gzip.decompress(buf)
+        rec["bytes"] = len(buf)
+    with span("fasta_parse") as rec:
+        out = fastaio.parse(buf, str(path))
+        rec.update(bp=out.total_length, seqs=out.num_seqs)
+        del buf   # freeing a chromosome's bytes takes ms: inside the span
+    return out
 
 
 def write_fasta(path: str | os.PathLike, seqs: list[Sequence],
