@@ -163,7 +163,8 @@ def read_fasta(path: str | os.PathLike) -> FastaSet:
     """Read a (multi-)FASTA file, transparently gunzipping .gz inputs, with
     the native parser (a failed build of it raises). Spans ``fasta_read``
     (open, read, gunzip; ``bytes`` handed to the parser) and
-    ``fasta_parse`` (``bp``, ``seqs``) of the active PhaseLog."""
+    ``fasta_parse`` (``bp``, ``seqs``, and ``wide_bp``: the bases the
+    parser's 16-byte steps wrote) of the active PhaseLog."""
     from slamem_tpu_torch._native import fastaio
 
     with span("fasta_read") as rec:
@@ -175,7 +176,7 @@ def read_fasta(path: str | os.PathLike) -> FastaSet:
             buf = gzip.decompress(buf)
         rec["bytes"] = len(buf)
     with span("fasta_parse") as rec:
-        out = fastaio.parse(buf, str(path))
+        out = fastaio.parse(buf, str(path), rec)
         rec.update(bp=out.total_length, seqs=out.num_seqs)
         del buf   # freeing a chromosome's bytes takes ms: inside the span
     return out
