@@ -21,7 +21,15 @@ slab's data only:
     (seed_mode._finish: merge across blocks, extension, one fetch).
 
 The slabs are iterated by a Python loop on the one device, so one slab's
-temporaries are live at a time. On a mesh (find_seed_matches_sharded_mesh)
+temporaries are live at a time. The virtual program's stages are spans of
+the active PhaseLog (utils/log.py), nested in run_engine's ``query``:
+``slab_tables`` (slabs, padded rows, R, shift, probes), ``slab_frontend``
+(windows; slab_pairs, each slab's candidate pairs from the frontend
+summary the program reads anyway), and per round ``slab_expand`` (round,
+rounds, busy_slabs, pairs: the slabs' total, worst_slab_pairs: the
+largest slab's, which sets a round's pace) and ``slab_merge`` (round,
+runs kept). Each closes after its StageClock mark, so it waits for the
+card only where the mark does. On a mesh (find_seed_matches_sharded_mesh)
 rank i runs the same per-slab stages for slab i alone: the worst-slab
 widths are a max reduction, each round's fragments are gathered in rank
 order, and every rank merges them on its device (merge_slab_runs). The
@@ -50,6 +58,7 @@ from slamem_tpu_torch.engine import seed_mode
 from slamem_tpu_torch.engine.seed_mode import (_I32MAX, _PAD_WORD0,
                                                _SA_INVALID, SeedMatches,
                                                StageClock)
+from slamem_tpu_torch.utils.log import span
 
 
 def virtual_slab_tables(index, k: int, n_slabs: int,
@@ -292,26 +301,38 @@ def _find_seed_matches_virtual(index, query_text: np.ndarray, cfg: Config,
     clock.mark("upload")
     m = int(qp.shape[0])
     k, stride, _sparse = seed_mode.choose_seed_plan(index.n, m, cfg)
-    (refk_p, sa_p, starts_st, bases, lasts, shift, probes,
-     slab) = virtual_slab_tables(index, k, n_slabs)
-    clock.mark("tables")
-    lo_st, w_st, cum, summary = virtual_frontend(
-        refk_p, starts_st, bases, lasts, qt, n_slabs, slab, k, shift,
-        probes, stride)
-    summary_h = summary.cpu().numpy()
-    clock.mark("frontend")
+    with span("slab_tables", slabs=n_slabs) as rec:
+        (refk_p, sa_p, starts_st, bases, lasts, shift, probes,
+         slab) = virtual_slab_tables(index, k, n_slabs)
+        clock.mark("tables")
+        rec.update(rows=int(refk_p.shape[0]), R=int(starts_st.shape[1]) - 1,
+                   shift=shift, probes=probes)
+    with span("slab_frontend") as rec:
+        lo_st, w_st, cum, summary = virtual_frontend(
+            refk_p, starts_st, bases, lasts, qt, n_slabs, slab, k, shift,
+            probes, stride)
+        summary_h = summary.cpu().numpy()
+        clock.mark("frontend")
+        rec.update(windows=int(cum.shape[0]),
+                   slab_pairs=summary_h[2:].tolist())
     blocks, m_off, w_min = _plan_slab_rounds(summary_h, cum, m, k, stride,
                                              cfg)
     busy = [i for i in range(n_slabs) if summary_h[2 + i] > 0]
+    load = dict(rounds=len(blocks), busy_slabs=len(busy),
+                pairs=int(summary_h[2:].sum()),
+                worst_slab_pairs=int(summary_h[2:].max()))
     pairs = torch.zeros((), dtype=torch.int64, device=index.device)
     frags = []
-    for start, end in blocks:
-        run_d, run_qs, run_qe, n_pairs = virtual_expand_runs(
-            sa_p, lo_st, w_st, start, end, m_off, slab, stride, busy)
-        pairs += n_pairs
-        clock.mark("expand")
-        frags.append(merge_slab_runs(run_d, run_qs, run_qe, w_min))
-        clock.mark("slab_merge")
+    for r, (start, end) in enumerate(blocks):
+        with span("slab_expand", round=r, **load):
+            run_d, run_qs, run_qe, n_pairs = virtual_expand_runs(
+                sa_p, lo_st, w_st, start, end, m_off, slab, stride, busy)
+            pairs += n_pairs
+            clock.mark("expand")
+        with span("slab_merge", round=r) as rec:
+            frags.append(merge_slab_runs(run_d, run_qs, run_qe, w_min))
+            clock.mark("slab_merge")
+            rec["runs"] = int(frags[-1][0].shape[0])
     matches = seed_mode._finish(index, frags, m_off, qt, k, stride, cfg,
                                 clock)
     return _with_stats(matches, index, m, int(pairs), k, stride, blocks,

@@ -81,11 +81,11 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
 
     ``mesh`` (dist/mesh.py) runs the seed engine over its ranks; every rank
     calls run_engine with the same inputs and gets the same output. Its
-    phases (``index_build``, ``join``, ``query``, ``emit``) go to the
-    active PhaseLog (utils/log.py), or to a log of this call's own, which
-    prints them with ``cfg.verbose``; ``stats['phases']`` holds this
-    call's records. ``SLAMEM_TRACE_DIR`` traces the queries
-    (utils/profile.py).
+    phases (``index_build``, ``join``, ``query``, ``emit``, and the
+    engine's own spans inside ``query``) go to the active PhaseLog
+    (utils/log.py), or to a log of this call's own, which prints them with
+    ``cfg.verbose``; ``stats['phases']`` holds this call's records.
+    ``SLAMEM_TRACE_DIR`` traces the queries (utils/profile.py).
     """
     dev = resolve_device(device)
     log = active_log() or PhaseLog(enabled=cfg.verbose)
@@ -120,7 +120,8 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
         total += int(length.size)
 
     def _search(qcodes: np.ndarray, **fields):
-        with log.phase("query", bp=len(qcodes), **fields) as rec:
+        with log.phase("query", bp=len(qcodes), **fields) as rec, \
+                log.activate():
             m = _search_one(index, qcodes, cfg, mesh)
             st = m.stats
             rec.update(pairs=st["pairs"], rounds=st["rounds"],

@@ -1,0 +1,251 @@
+"""The port's virtual-slab program (``-shard -slabs n`` on one device)
+against the benchmark's plain reference, and its spans.
+
+``benchmark/reference/mems.py`` is plain torch and imports nothing of the
+port or of JAX: ``run_engine`` with ``shard_index=True`` must list exactly
+the MEMs it lists, at slab counts 2, 3 and 8, with per-slab direct tables
+(probes 0) and with bracket-and-refine (probes > 0). A small table budget
+(``max_table_bytes``) keeps the ranged tables of K >= 15 small on the CPU,
+as ``tests/test_torch_sharded.py`` does.
+
+A CLI job records the program's stages as spans of its PhaseLog inside
+``query``: ``slab_tables``, ``slab_frontend``, and per round
+``slab_expand`` and ``slab_merge``, with their fields. Without ``-v`` the
+records add no synchronise and no host read.
+"""
+
+import functools
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.reference.mems import ReferenceTable
+from slamem_tpu_torch.cli.main import main
+from slamem_tpu_torch.config import Config
+from slamem_tpu_torch.dist import sharded
+from slamem_tpu_torch.engine import seed_mode
+from slamem_tpu_torch.engine.run import run_engine
+from slamem_tpu_torch.index.build import build_index
+from slamem_tpu_torch.io.fasta import FastaSet, Sequence, write_fasta
+from slamem_tpu_torch.utils.log import PhaseLog
+from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
+
+# The port's CPU path is many tiny ops: one intra-op thread per test worker
+# keeps parallel workers from oversubscribing the cores with idle spinners.
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+BUDGET = 1 << 20
+SLAB_SPANS = ("slab_tables", "slab_frontend", "slab_expand", "slab_merge")
+
+
+def _set(name: str, codes: np.ndarray) -> FastaSet:
+    return FastaSet(names=[name], starts=np.array([0]),
+                    lengths=np.array([len(codes)]), codes=codes)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    ref = with_n_runs(random_genome(12_000, seed=601), 2, 40, seed=602)
+    qry = with_n_runs(mutate(ref, 0.02, 0.002, seed=603), 2, 30, seed=604)
+    return ref, qry
+
+
+@pytest.fixture
+def small_tables(monkeypatch):
+    monkeypatch.setattr(sharded, "virtual_slab_tables", functools.partial(
+        sharded.virtual_slab_tables, max_table_bytes=BUDGET))
+
+
+def _reference(ref: np.ndarray, qry: np.ndarray, min_len: int):
+    r, q, n = ReferenceTable(torch.from_numpy(ref), min_len).find_mems(
+        torch.from_numpy(qry))
+    return sorted(zip(r.tolist(), q.tolist(), n.tolist()))
+
+
+def _listed(out) -> list[tuple[int, int, int]]:
+    (qm,) = out.per_query
+    return sorted(zip(qm.ref_pos.tolist(), qm.q_pos.tolist(),
+                      qm.length.tolist()))
+
+
+# min_length -> whether the plan probes: K 8 at -l 14 keeps each slab's
+# table direct; K 16 at -l 30 coarsens the buckets under the budget
+PROBES = {14: False, 30: True}
+
+
+@pytest.mark.parametrize("min_len", sorted(PROBES))
+@pytest.mark.parametrize("n_slabs", [2, 3, 8])
+def test_slab_program_lists_what_the_reference_lists(pair, small_tables,
+                                                     n_slabs, min_len):
+    ref, qry = pair
+    cfg = Config(min_length=min_len, shard_index=True, shard_slabs=n_slabs)
+    out = run_engine(_set("R", ref), _set("Q", qry), cfg, device="cpu")
+    (st,) = out.stats["searches"]
+    assert st["shards"] == n_slabs and st["virtual_slabs"] is True
+    assert (st["probes"] > 0) == PROBES[min_len]
+    want = _reference(ref, qry, min_len)
+    assert _listed(out) == want and len(want) > 0
+
+
+def _slab_records(records: list[dict]) -> dict[str, list[dict]]:
+    by = {name: [] for name in SLAB_SPANS}
+    for r in records:
+        if r["phase"] in by:
+            by[r["phase"]].append(r)
+    return by
+
+
+def test_cli_job_records_the_slab_spans_inside_query(pair, monkeypatch,
+                                                     tmp_path, capsys):
+    """One -shard -slabs 8 job with -v and the JSON log: the four spans
+    inside ``query``, in the program's order, with their fields."""
+    ref, qry = pair
+    rp, qp = str(tmp_path / "r.fa"), str(tmp_path / "q.fa")
+    write_fasta(rp, [Sequence("R", ref)])
+    write_fasta(qp, [Sequence("Q", qry)])
+    monkeypatch.setenv("SLAMEM_LOG_JSON", "1")
+    out = tmp_path / "a.txt"
+    assert main(["-device", "cpu", "-v", "-shard", "-slabs", "8", "-l",
+                 "14", "-o", str(out), rp, qp]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+            if line.startswith("{")]
+    assert [r["phase"] for r in recs] == [
+        "fasta_read", "fasta_parse", "fasta_read", "fasta_parse",
+        "index_build", *SLAB_SPANS, "query", "emit", "render", "write"]
+    by = {r["phase"]: r for r in recs}
+    query = by["query"]
+    inner = recs[5:9]
+    assert all(query["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= query["t1_ns"]
+               for r in inner)
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(inner, inner[1:]))
+    assert sum(r["seconds"] for r in inner) <= query["seconds"]
+    tables, front, expand, merge = inner
+    assert tables["slabs"] == 8 and tables["rows"] % 8 == 0
+    assert tables["rows"] >= len(ref) + 1
+    assert tables["R"] >= 2 and tables["R"] & (tables["R"] - 1) == 0
+    assert (tables["shift"], tables["probes"]) == (0, 0)
+    assert front["windows"] > 0 and len(front["slab_pairs"]) == 8
+    assert expand["round"] == 0 and expand["rounds"] == query["rounds"] == 1
+    assert expand["pairs"] == sum(front["slab_pairs"]) >= query["pairs"] > 0
+    assert expand["worst_slab_pairs"] == max(front["slab_pairs"])
+    assert expand["worst_slab_pairs"] * 8 >= expand["pairs"]
+    assert expand["busy_slabs"] == sum(p > 0 for p in front["slab_pairs"])
+    assert merge["round"] == 0 and merge["runs"] >= by["emit"]["matches"]
+
+
+@pytest.mark.parametrize("n_slabs", [2, 3, 8])
+@pytest.mark.parametrize("capacity", [None, 100])
+def test_worst_slab_pairs_bounds_each_rounds_share(pair, small_tables,
+                                                   n_slabs, capacity):
+    """Under an active log (run_engine's own, in stats['phases']) each
+    round records one ``slab_expand`` and one ``slab_merge``; the worst
+    slab's pairs are at least the slabs' mean."""
+    ref, qry = pair
+    fields = {} if capacity is None else {"pair_capacity": capacity}
+    cfg = Config(min_length=14, shard_index=True, shard_slabs=n_slabs,
+                 **fields)
+    out = run_engine(_set("R", ref), _set("Q", qry), cfg, device="cpu")
+    (st,) = out.stats["searches"]
+    by = _slab_records(out.stats["phases"])
+    rounds = st["rounds"]
+    assert (rounds > 1) == (capacity is not None)
+    assert [r["round"] for r in by["slab_expand"]] == list(range(rounds))
+    assert [r["round"] for r in by["slab_merge"]] == list(range(rounds))
+    assert len(by["slab_tables"]) == len(by["slab_frontend"]) == 1
+    for r in by["slab_expand"]:
+        assert r["rounds"] == rounds and r["pairs"] >= st["pairs"] > 0
+        assert r["worst_slab_pairs"] >= r["pairs"] / n_slabs
+        assert r["busy_slabs"] <= n_slabs
+    assert by["slab_tables"][0]["R"] == st["R"]
+    assert (by["slab_tables"][0]["shift"], by["slab_tables"][0]["probes"]
+            ) == (st["shift"], st["probes"])
+
+
+def _host_touches(mp) -> list[str]:
+    """Every synchronise of the engine and every read of a tensor to the
+    host (``.cpu()``, ``.numpy()``, ``.item()``, ``.tolist()``, ``int()``,
+    ``bool()``), by name, as it happens, while ``mp`` (a monkeypatch
+    context) lasts."""
+    seen = []
+    mp.setattr(seed_mode, "synchronize",
+               lambda dev: seen.append("synchronize"))
+    for attr in ("cpu", "numpy", "item", "tolist", "__int__", "__bool__"):
+        orig = getattr(torch.Tensor, attr)
+
+        def counted(self, *a, _orig=orig, _attr=attr, **kw):
+            seen.append(_attr)
+            return _orig(self, *a, **kw)
+
+        mp.setattr(torch.Tensor, attr, counted)
+    return seen
+
+
+# The slab program's host reads on the CPU before it had spans, in order:
+# the query's upload (its wire's two numpy views), the slab plan's one
+# read, the plain bucket tables' ends (one int a slab), the frontend
+# summary, at several rounds the worst-slab cumsum, the tail's one fetch
+# of the matches, the pair count
+_TABLE_READS = ["numpy", "numpy", "cpu", "numpy", *["__int__"] * 8]
+READS = {None: [*_TABLE_READS, "cpu", "numpy", "cpu", "numpy", "__int__"],
+         100: [*_TABLE_READS, "cpu", "numpy", "cpu", "numpy", "cpu", "numpy",
+               "__int__"]}
+
+
+@pytest.mark.parametrize("capacity", sorted(READS, key=str))
+def test_slab_records_add_no_sync_and_no_host_read(pair, monkeypatch,
+                                                   capacity):
+    """With the log off (not verbose, no profiler) a query that records
+    the four spans makes no synchronise, and reads from the device what
+    the program read before it had spans, at one round and at several."""
+    ref, qry = pair
+    fields = {} if capacity is None else {"pair_capacity": capacity}
+    cfg = Config(min_length=14, **fields)
+    index = build_index(_set("R", ref).with_separators()[0], cfg.occ_block,
+                        "cpu")
+    with PhaseLog(enabled=False).activate() as log, \
+            monkeypatch.context() as mp:
+        seen = _host_touches(mp)
+        m = sharded.find_seed_matches_sharded(index, qry, cfg, n_slabs=8)
+    assert set(r["phase"] for r in log.records) == set(SLAB_SPANS)
+    assert (m.stats["rounds"] > 1) == (capacity is not None)
+    assert seen == READS[capacity] and m.refpos.size > 0
+
+
+def test_reference_and_slab_program_load_no_jax(tmp_path):
+    """The reference and the slab program in a process of their own: the
+    same listing, and no JAX or JAX package module loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from benchmark.reference.mems import ReferenceTable\n"
+        "from slamem_tpu_torch.config import Config\n"
+        "from slamem_tpu_torch.engine.run import run_engine\n"
+        "from slamem_tpu_torch.io.fasta import FastaSet\n"
+        "from slamem_tpu_torch.utils.synth import mutate, random_genome\n"
+        "ref = random_genome(3000, seed=7)\n"
+        "qry = mutate(ref, 0.02, 0.002, seed=8)\n"
+        "mk = lambda c: FastaSet(names=['x'], starts=np.array([0]),\n"
+        "                        lengths=np.array([len(c)]), codes=c)\n"
+        "out = run_engine(mk(ref), mk(qry), Config(min_length=14,\n"
+        "                 shard_index=True, shard_slabs=3), device='cpu')\n"
+        "(qm,) = out.per_query\n"
+        "got = sorted(zip(qm.ref_pos.tolist(), qm.q_pos.tolist(),\n"
+        "                 qm.length.tolist()))\n"
+        "r, q, n = ReferenceTable(torch.from_numpy(ref), 14).find_mems(\n"
+        "    torch.from_numpy(qry))\n"
+        "assert got == sorted(zip(r.tolist(), q.tolist(), n.tolist()))\n"
+        "assert got\n"
+        "bad = {m.split('.')[0] for m in sys.modules} & {\n"
+        "    'jax', 'jaxlib', 'flax', 'slamem_tpu'}\n"
+        "assert not bad, bad\n"
+        "print('ok', len(got))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok ")
