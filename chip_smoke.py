@@ -9,8 +9,15 @@ Phases, each of which raises on failure (exit status non-zero):
      the unpack kernel of the packed upload wire (csrc/unpack2.cu), the
      endpoint-extension kernel of the seed engine (csrc/extend.cu), the key
      kernels of the seed tables (csrc/seedkeys.cu: the seed table's rows
-     and the query's key pack) and the bucket-start kernel
-     (csrc/buckets.cu);
+     and the query's key pack), the bucket-start kernel (csrc/buckets.cu)
+     and the index build's occ checkpoint kernel (csrc/occ.cu);
+  o. the occ checkpoint kernel (index/build.py occ_checkpoints) on a BWT
+     of chr1's 250,000,001 symbols at occ_block 128 == its plain version,
+     aligned and 1 byte past a 16-byte boundary (the byte path), timed
+     with its byte bound, the plain version, the plain version with its
+     cumsum along the contiguous dimension, and the library yardstick:
+     torch.cumsum of the block counts along the contiguous dimension (and
+     along the outer one, the parent's call);
   2. hold each standalone rank kernel against its plain PyTorch version,
      exact integer equality, and time both: K0 (rank_rows, interleaved
      table) and the nibble kernel (rank_rows_nib, nibble table), each on
@@ -119,7 +126,8 @@ Phases, each of which raises on failure (exit status non-zero):
      card (a tap stands in for seed_mode.extend_runs and ext_arrays and
      calls them; it also keeps 5d's and 6a's merged runs for phase e);
      each CLI call of 5a-5d, 6a, 6b and 9a must have launched the seed
-     table's kernel once, the key pack once and the bucket-start kernel
+     table's kernel once, the key pack once, the index build's occ
+     checkpoint kernel once (its cold build) and the bucket-start kernel
      once (5a-5c, 6a, 9a), never (5d, the join frontend) or once a slab
      (6b: 8);
      t. the seed tables' kernels against their plain versions on the card,
@@ -196,15 +204,16 @@ Phases, each of which raises on failure (exit status non-zero):
      wrapper, the plain version and its core alone by CUDA events, the
      bound from the runs' bytes and the sector bound (40 B a run + the
      32-byte sectors under its four windows).
-Phases run in the order 1, 2, 2w, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c,
+Phases run in the order 1, o, 2, 2w, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c,
 7d, 5a, 9a, 7a, 5b, 5d, t (5 Mbp), 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b,
 9b, t (config #5), e. Prints the card and its power limit (nvidia-smi), a
 ``{"kernels": [...]}`` line (each kernel's launches on its path,
 exactness, time, plain time and lower bound; the standalone rank kernels'
 path is the scan kernel that runs their device function, the any-width
 nibble kernel's is 2w's rank_nib calls; the unpack,
-extension and table kernels' launches are 5a's, their times phase u's at
-the query shape, phase e's at 6a's runs and phase t's at 6a's shapes),
+extension, table and occ kernels' launches are 5a's, their times phase u's
+at the query shape, phase e's at 6a's runs, phase t's at 6a's shapes and
+phase o's at chr1's size),
 and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -1405,6 +1414,112 @@ def _bound(bound_bytes: int, bound_ops: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+OCC_N = CHR1["n"] + 1            # chr1's reference and its terminator
+OCC_BLOCK = 128                  # Config.occ_block, the CLI's spacing
+
+
+def _occ_plain_inner(bwt, block: int):
+    """occ_checkpoints_plain with its cumsum along the contiguous dimension
+    of the (4, n_blocks) transpose (the scan CUB runs in parallel), not the
+    outer dimension of (n_blocks, 4): the fair library version of the
+    checkpoints, a yardstick only."""
+    import torch
+
+    from slamem_tpu_torch.index.build import BWT_SENTINEL
+
+    n = bwt.numel()
+    n_blocks = -(-n // block)
+    pad = torch.full((n_blocks * block - n,), BWT_SENTINEL,
+                     dtype=torch.uint8, device=bwt.device)
+    padded = torch.cat([bwt, pad]).view(n_blocks, block)
+    per_block = torch.stack([(padded == c).sum(1, dtype=torch.int32)
+                             for c in range(4)])
+    scanned = torch.cumsum(per_block, 1, dtype=torch.int32).t()
+    return torch.cat([torch.zeros((1, 4), dtype=torch.int32,
+                                  device=bwt.device), scanned])
+
+
+def _phase_o(index_build) -> dict:
+    """Phase o: the occ checkpoint kernel (index_build.occ_checkpoints) on a
+    BWT of chr1's 250,000,001 symbols (random codes with N, SEP and the
+    sentinel among them) at occ_block 128 against occ_checkpoints_plain,
+    exact, and the same 1 byte past a 16-byte boundary (the byte path);
+    times by CUDA events of the raw launches, the wrapper, the plain
+    version, the plain version with the cumsum along the contiguous
+    dimension (``_occ_plain_inner``, exact too), and the library yardstick
+    torch.cumsum over the (4, n_blocks) transpose of the block counts along
+    its contiguous dimension (``library_ms``; ``outer_cumsum_ms``: along
+    the outer dimension of (n_blocks, 4), the parent's call); the port
+    calls neither. Bound: bytes, n read and 16 (n_blocks + 1) written.
+    Whether a build launches it once is the CLI phases' check
+    (``_table_launches``)."""
+    import torch
+
+    from slamem_tpu_torch.kernels.occ import load_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(HEADLINE["seed"])
+    whole = torch.randint(0, 4, (OCC_N + 16,), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    for code, count in ((4, 1 << 20), (5, 1 << 16), (6, 1)):
+        whole[torch.randint(0, whole.numel(), (count,), generator=gen,
+                            device="cuda")] = code
+    bwt = whole[:OCC_N]
+    got = index_build.occ_checkpoints(bwt, OCC_BLOCK)
+    want = index_build.occ_checkpoints_plain(bwt, OCC_BLOCK)
+    torch.cuda.synchronize()
+    err = _exact("o occ checkpoints", (got,), (want,))
+    shifted = whole[1:OCC_N + 1]
+    err = max(err, _exact(
+        "o occ checkpoints, 1 byte past 16-byte alignment",
+        (index_build.occ_checkpoints(shifted, OCC_BLOCK),),
+        (index_build.occ_checkpoints_plain(shifted, OCC_BLOCK),)))
+    _exact("o plain checkpoints, cumsum along the contiguous dimension",
+           (_occ_plain_inner(bwt, OCC_BLOCK),), (want,))
+    n_blocks = want.shape[0] - 1
+    per_block = want[1:] - want[:-1]
+    per_block_t = per_block.t().contiguous()
+    del want
+    kernel = load_kernel()
+    sums = torch.empty((kernel.tiles(OCC_N), 4), dtype=torch.int32,
+                       device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw(b=bwt):
+        if kernel.fn(b.data_ptr(), b.numel(), OCC_BLOCK, sums.data_ptr(),
+                     got.data_ptr(), stream):
+            raise RuntimeError("occ checkpoint kernel launch failed")
+
+    ms = _cuda_ms(raw, 50)
+    byte_ms = _cuda_ms(lambda: raw(shifted), 10)
+    wrapper_ms = _cuda_ms(
+        lambda: index_build.occ_checkpoints(bwt, OCC_BLOCK), 50)
+    plain_ms = _cuda_ms(
+        lambda: index_build.occ_checkpoints_plain(bwt, OCC_BLOCK), 3)
+    plain_inner_ms = _cuda_ms(lambda: _occ_plain_inner(bwt, OCC_BLOCK), 10)
+    library_ms = _cuda_ms(
+        lambda: torch.cumsum(per_block_t, 1, dtype=torch.int32).t(), 10)
+    outer_ms = _cuda_ms(
+        lambda: torch.cumsum(per_block, 0, dtype=torch.int32), 3)
+    res = {"n": OCC_N, "occ_block": OCC_BLOCK, "n_blocks": n_blocks,
+           "ms": ms, "byte_path_ms": byte_ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "plain_inner_ms": plain_inner_ms,
+           "library_ms": library_ms, "outer_cumsum_ms": outer_ms,
+           "max_abs_err": err, **_bound(OCC_N + 16 * (n_blocks + 1), 0)}
+    res["bound_share_pct"] = 100.0 * res["bound_ms"] / ms
+    _log(f"[occ o] {OCC_N} symbols, occ_block {OCC_BLOCK} ({n_blocks} "
+         f"blocks): kernel == plain (aligned and 1 byte past); kernel "
+         f"{ms:.6f} ms ({res['bound_share_pct']:.1f}% of the bound "
+         f"{res['bound_ms']:.6f} ms, {res['bound_by']}), byte path "
+         f"{byte_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms, plain "
+         f"{plain_ms:.6f} ms, plain with the contiguous cumsum "
+         f"{plain_inner_ms:.6f} ms; torch.cumsum of the block counts along "
+         f"the contiguous dimension {library_ms:.6f} ms, along the outer "
+         f"one {outer_ms:.6f} ms")
+    del whole, bwt, shifted, got, per_block, per_block_t, sums
+    torch.cuda.empty_cache()
+    return res
+
+
 def _seed_table_t(seed_mode, label: str, index, k: int) -> dict:
     """Phase t, the seed table of one index at one K: seed_table_rows'
     two kernels (the plane pass and the gather) against
@@ -1727,14 +1842,19 @@ def _verbose_stats(stderr: str) -> dict:
 
 
 def _table_launches(seed_mode) -> dict:
-    """The seed tables' kernel launches since the last reset (and resets
-    them): the seed table, the bucket starts, the query's key pack."""
+    """The table kernels' launches since the last reset (and resets them):
+    the seed table, the bucket starts, the query's key pack and the index
+    build's occ checkpoints."""
+    from slamem_tpu_torch.index import build as index_build
+
     got = {"seed_table": seed_mode.seed_table_rows.launches,
            "bucket_starts": seed_mode.bucket_starts.launches,
-           "packed_key_words": seed_mode.packed_key_words.launches}
+           "packed_key_words": seed_mode.packed_key_words.launches,
+           "occ_checkpoints": index_build.occ_checkpoints.launches}
     seed_mode.seed_table_rows.launches = 0
     seed_mode.bucket_starts.launches = 0
     seed_mode.packed_key_words.launches = 0
+    index_build.occ_checkpoints.launches = 0
     return got
 
 
@@ -1744,9 +1864,10 @@ def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
     peak device memory. Raises if the count is not ``want``, unless the
     call launched the extension kernel once and built no extension table
     on the card (``tap``), or unless it launched the seed-table kernel
-    once (the CLI builds its index cold), the bucket-start kernel
-    ``buckets`` times (a table, one a slab, none for the join frontend) and
-    the key pack once (one engine call)."""
+    once and the occ checkpoint kernel once (the CLI builds its index
+    cold), the bucket-start kernel ``buckets`` times (a table, one a slab,
+    none for the join frontend) and the key pack once (one engine
+    call)."""
     import torch
 
     from slamem_tpu_torch.engine import seed_mode
@@ -1764,10 +1885,10 @@ def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
     st["extend_launches"] = tap.check(label)
     st["table_launches"] = _table_launches(seed_mode)
     if st["table_launches"] != {"seed_table": 1, "bucket_starts": buckets,
-                                "packed_key_words": 1}:
+                                "packed_key_words": 1, "occ_checkpoints": 1}:
         raise AssertionError(f"{label}: table kernel launches "
                              f"{st['table_launches']}, expected 1, "
-                             f"{buckets}, 1")
+                             f"{buckets}, 1, 1")
     st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     st["matches"] = len(_listing_matches(out))
     st["wall_s"] = wall
@@ -2032,8 +2153,8 @@ def run() -> int:
     from slamem_tpu_torch.index import serialize
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
-    from slamem_tpu_torch.kernels import (buckets, extend, rank, seedkeys,
-                                          unpack2)
+    from slamem_tpu_torch.kernels import (buckets, extend, occ, rank,
+                                          seedkeys, unpack2)
     from slamem_tpu_torch.utils import pack2, synth
 
     tap = _ExtendTap(seed_mode)
@@ -2048,12 +2169,13 @@ def run() -> int:
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = {"rank and scan kernels": pool.submit(rank.load_kernel),
                   "unpack kernel": pool.submit(unpack2.load_kernel),
                   "extension kernel": pool.submit(extend.load_kernel),
                   "key kernels": pool.submit(seedkeys.load_kernel),
-                  "bucket kernel": pool.submit(buckets.load_kernel)}
+                  "bucket kernel": pool.submit(buckets.load_kernel),
+                  "occ kernel": pool.submit(occ.load_kernel)}
         built = {label: f.result() for label, f in builds.items()}
     _log(f"[build] {', '.join(f'{k} {v.path.name}' for k, v in built.items())}"
          f" in {time.perf_counter() - t0:.3f} s")
@@ -2061,6 +2183,9 @@ def run() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 _log(f"[build] {line.strip()}")
+
+    # o. the index build's occ checkpoint kernel at chr1's size
+    occ_o = _phase_o(index_build)
 
     # 2. each kernel vs its plain version on the headline reference's
     # tables, at the scan's batch shape, and on a table larger than L2
@@ -2673,6 +2798,19 @@ def run() -> int:
             # torch.searchsorted of the prefixes over every bucket; no
             # PyTorch call packs K-mers
             "library_ms": c["library_ms"] if library else None})
+    # the index build's occ checkpoints at chr1's size (phase o); launches:
+    # 5a's (one a build, as in every CLI phase)
+    kernels.append({
+        "name": "occ_checkpoints", "route": "cuda",
+        "source": "slamem_tpu_torch/kernels/csrc/occ.cu",
+        "replaces": "none (XLA's cumsum in slamem_tpu/index/build.py"
+                    "::_finish_index)",
+        "launches": launches["occ_checkpoints"],
+        "max_abs_err": occ_o["max_abs_err"], "ms": occ_o["ms"],
+        "plain_ms": occ_o["plain_ms"], "bound_ms": occ_o["bound_ms"],
+        "bound_by": occ_o["bound_by"],
+        # torch.cumsum of the block counts along the contiguous dimension
+        "library_ms": occ_o["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

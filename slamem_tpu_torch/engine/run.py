@@ -20,7 +20,8 @@ from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.dist.mesh import Mesh
 from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
 from slamem_tpu_torch.engine import scan_mode, seed_mode
-from slamem_tpu_torch.index.build import FMIndex, build_index
+from slamem_tpu_torch.index.build import (FMIndex, build_index,
+                                          occ_checkpoints)
 from slamem_tpu_torch.io.fasta import FastaSet, revcomp_codes
 from slamem_tpu_torch.utils.device import resolve_device, synchronize
 from slamem_tpu_torch.utils.log import PhaseLog, active_log
@@ -92,12 +93,14 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
     n_records = len(log.records)
     t0 = time.perf_counter()
     rtext, rstarts = ref_set.with_separators()
-    with log.phase("index_build", bp=len(rtext)):
+    with log.phase("index_build", bp=len(rtext)) as rec:
+        launches = occ_checkpoints.launches
         if index is None:
             index = build_index(rtext, cfg.occ_block, dev)
         elif index.device != dev:
             raise ValueError(f"index is on {index.device}, run asked for "
                              f"{dev}")
+        rec["occ_launches"] = occ_checkpoints.launches - launches
         synchronize(dev)
     t_build = time.perf_counter() - t0
 

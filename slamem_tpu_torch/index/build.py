@@ -2,8 +2,9 @@
 
 Suffix array by Manber–Myers prefix doubling: O(log n) rounds, each one
 ``torch.sort`` of packed (rank, rank@+k) int64 keys; BWT is one gather and
-the occ checkpoints one reshape + cumsum. The full suffix array stays on the
-device (int32, 4n bytes): a direct gather replaces a sampled-SA locate walk.
+the occ checkpoints one kernel on the card (``occ_checkpoints``). The full
+suffix array stays on the device (int32, 4n bytes): a direct gather
+replaces a sampled-SA locate walk.
 
 Alphabet / sort-order contract (shared with the engines and io/fasta.py):
 codes A=0 C=1 G=2 T=3, N=4, SEP=5. Every N/SEP position receives a UNIQUE
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from slamem_tpu_torch.io.fasta import CODE_N, CODE_SEP
+from slamem_tpu_torch.kernels.occ import load_kernel as load_occ
 from slamem_tpu_torch.utils.device import resolve_device
 from slamem_tpu_torch.utils.pack2 import codes_to_device
 
@@ -117,8 +119,70 @@ def suffix_array(text: torch.Tensor) -> torch.Tensor:
     return torch.argsort(rank).to(torch.int32)
 
 
+def occ_checkpoints_plain(bwt: torch.Tensor, occ_block: int
+                          ) -> torch.Tensor:
+    """occ_checkpoints by torch ops: the BWT sentinel-padded to whole
+    blocks, four compare-and-sum passes and a cumsum over the blocks."""
+    n = bwt.shape[0]
+    dev = bwt.device
+    n_blocks = -(-n // occ_block)
+    pad = n_blocks * occ_block - n
+    # sentinel-pad so padding never counts toward any ACGT char
+    bwt_p = torch.cat([bwt, torch.full((pad,), BWT_SENTINEL, dtype=torch.uint8,
+                                       device=dev)]).view(n_blocks, occ_block)
+    per_block = torch.stack([(bwt_p == c).sum(1, dtype=torch.int32)
+                             for c in range(4)], dim=1)
+    return torch.cat([torch.zeros((1, 4), dtype=torch.int32, device=dev),
+                      torch.cumsum(per_block, 0, dtype=torch.int32)])
+
+
+def occ_checkpoints(bwt: torch.Tensor, occ_block: int) -> torch.Tensor:
+    """(ceil(n / occ_block) + 1, 4) int32 occ checkpoints of a uint8 BWT:
+    row r counts A, C, G, T in bwt[:r * occ_block] (the last row in all of
+    it); N, SEP and the sentinel count for nothing.
+
+    CUDA tensors launch ``slamem_occ_checkpoints`` of ``kernels/csrc/
+    occ.cu`` on the current stream (count the tiles, scan their totals,
+    write the rows: 16 bytes a thread where occ_block % 16 == 0, a byte
+    loop otherwise), without synchronising, and count the call in
+    ``occ_checkpoints.launches``. CPU tensors take occ_checkpoints_plain.
+    """
+    if not 1 <= occ_block < 1 << 31:
+        raise ValueError(f"occ_block must lie in [1, 2^31), got {occ_block}")
+    if bwt.dtype != torch.uint8 or bwt.dim() != 1 or not bwt.is_contiguous():
+        raise ValueError(f"bwt must be a 1-D contiguous uint8 tensor, got "
+                         f"{tuple(bwt.shape)} {bwt.dtype}")
+    n = bwt.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"occ counts are int32: {n} symbols is too many")
+    if bwt.device.type == "cpu":
+        return occ_checkpoints_plain(bwt, occ_block)
+    kernel = load_occ()
+    occ = torch.empty((-(-n // occ_block) + 1, 4), dtype=torch.int32,
+                      device=bwt.device)
+    sums = torch.empty((kernel.tiles(n), 4), dtype=torch.int32,
+                       device=bwt.device)
+    with torch.cuda.device(bwt.device):
+        stream = torch.cuda.current_stream(bwt.device).cuda_stream
+        err = kernel.fn(bwt.data_ptr(), n, occ_block, sums.data_ptr(),
+                        occ.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"occ checkpoint kernel launch failed: CUDA error "
+                           f"{err}")
+    occ_checkpoints.launches += 1
+    return occ
+
+
+occ_checkpoints.launches = 0
+
+
 def _finish_index(text: torch.Tensor, sa: torch.Tensor, occ_block: int):
-    """BWT, occ checkpoints and C[] from (text, sa)."""
+    """BWT, occ checkpoints and C[] from (text, sa), the text ending in its
+    CODE_SEP terminator.
+
+    The BWT holds every symbol of the text but the terminator, and the
+    sentinel, so its ACGT totals (the last checkpoint row) are the text's.
+    """
     n = text.shape[0]
     dev = text.device
     sa64 = sa.to(torch.int64)
@@ -127,19 +191,8 @@ def _finish_index(text: torch.Tensor, sa: torch.Tensor, occ_block: int):
                       torch.tensor(BWT_SENTINEL, dtype=torch.uint8,
                                    device=dev),
                       text[prev])
-
-    n_blocks = -(-n // occ_block)
-    pad = n_blocks * occ_block - n
-    # sentinel-pad so padding never counts toward any ACGT char
-    bwt_p = torch.cat([bwt, torch.full((pad,), BWT_SENTINEL, dtype=torch.uint8,
-                                       device=dev)]).view(n_blocks, occ_block)
-    per_block = torch.stack([(bwt_p == c).sum(1, dtype=torch.int32)
-                             for c in range(4)], dim=1)
-    occ_ckpt = torch.cat([torch.zeros((1, 4), dtype=torch.int32, device=dev),
-                          torch.cumsum(per_block, 0, dtype=torch.int32)])
-
-    char_counts = torch.stack([(text == c).sum(dtype=torch.int32)
-                               for c in range(4)])
+    occ_ckpt = occ_checkpoints(bwt, occ_block)
+    char_counts = occ_ckpt[-1]
     n_special = n - char_counts.sum(dtype=torch.int32)
     counts = n_special + torch.cat(
         [torch.zeros(1, dtype=torch.int32, device=dev),

@@ -3,7 +3,8 @@ and the any-width nibble kernel, and the index-level drop-ins over them), the
 scan kernel (``scan_lanes``, both table layouts), the 2-bit unpack kernel
 of the upload wire (``unpack_codes``), the seed engine's endpoint-extension
 kernel (``extend_runs``), the seed tables' key and bucket-start kernels
-(``seed_table_rows``, ``packed_key_words``, ``bucket_starts``), the scan,
+(``seed_table_rows``, ``packed_key_words``, ``bucket_starts``), the index
+build's occ checkpoint kernel (``occ_checkpoints``), the scan,
 seed (sort and boundary backends) and
 virtual-slab engines on a CUDA device, and the mesh branches over a
 one-rank NCCL group, against their plain versions / CPU runs / the
@@ -33,12 +34,15 @@ from slamem_tpu_torch.dist.mesh import make_mesh
 from slamem_tpu_torch.dist.sharded import (find_seed_matches_sharded,
                                            find_seed_matches_sharded_mesh)
 from slamem_tpu_torch.engine import scan_mode, seed_mode
+from slamem_tpu_torch.engine.run import run_engine
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
 from slamem_tpu_torch.engine.seed_mode import (find_seed_matches,
                                                find_seed_matches_mesh,
                                                query_to_device)
+from slamem_tpu_torch.index import build as index_build
 from slamem_tpu_torch.index.build import build_index, rank_batch
-from slamem_tpu_torch.io.fasta import CODE_SEP, Sequence, write_fasta
+from slamem_tpu_torch.io.fasta import (CODE_SEP, FastaSet, Sequence,
+                                       write_fasta)
 from slamem_tpu_torch.kernels import rank
 from slamem_tpu_torch.utils import pack2
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
@@ -413,6 +417,87 @@ def test_build_index_wire_on_cuda(cuda):
     assert pack2.unpack_codes.launches == before + 1
     for f in ("text", "sa", "bwt", "occ_ckpt", "counts"):
         assert torch.equal(getattr(wired, f), getattr(plain, f)), f
+
+
+OCC_TILE = 16_384   # csrc/occ.cu's tile (4 rounds of 4,096 bytes)
+
+
+def _occ_lengths(block):
+    """n = 1, B - 1, B, B + 1, a round's and a tile's edges +-1 and one
+    past 2^20."""
+    return sorted({1, max(block - 1, 1), block, block + 1, 4095, 4096, 4097,
+                   OCC_TILE - 1, OCC_TILE, OCC_TILE + 1, 2 * OCC_TILE + 1,
+                   (1 << 20) + 3})
+
+
+def _occ_bwt(n, seed, device):
+    """Codes 0..3 with N, SEP and the sentinel among them."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 4, size=n).astype(np.uint8)
+    b[rng.integers(0, n, size=max(1, n // 40))] = 4
+    b[rng.integers(0, n, size=max(1, n // 90))] = CODE_SEP
+    b[rng.integers(0, n)] = index_build.BWT_SENTINEL
+    return torch.from_numpy(b).to(device)
+
+
+@pytest.mark.parametrize("occ_block,n", [
+    (b, n) for b in (4, 16, 32, 48, 64, 96, 128, 8192, 20_000)
+    for n in _occ_lengths(b)])
+def test_occ_kernel_equals_plain(cuda, occ_block, n):
+    """16-byte aligned BWTs: the 16-byte path wherever occ_block % 16 == 0,
+    with its row and remainder carried across rounds where occ_block does
+    not divide a round's 4,096 bytes (48, 96, 20,000) or exceeds it (8,192,
+    20,000)."""
+    bwt = _occ_bwt(n, occ_block * 131 + n, cuda)
+    assert bwt.data_ptr() % 16 == 0
+    before = index_build.occ_checkpoints.launches
+    got = index_build.occ_checkpoints(bwt, occ_block)
+    assert index_build.occ_checkpoints.launches == before + 1
+    want = index_build.occ_checkpoints_plain(bwt, occ_block)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("occ_block", [5, 48, 128, 4096])
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_occ_kernel_byte_path_and_offsets(cuda, occ_block, offset):
+    """BWTs at byte offsets from a 16-byte boundary (the byte loop even
+    where occ_block % 16 == 0) and widths other than 4-128."""
+    for n in (1, occ_block, 3 * OCC_TILE + 7, (1 << 20) + 3):
+        whole = _occ_bwt(n + offset, occ_block + offset + n, cuda)
+        bwt = whole[offset:]
+        assert bwt.data_ptr() % 16 == offset % 16
+        got = index_build.occ_checkpoints(bwt, occ_block)
+        want = index_build.occ_checkpoints_plain(bwt, occ_block)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), n
+
+
+def test_build_index_launches_the_occ_kernel_once(cuda, monkeypatch):
+    """A card build never takes the plain checkpoints: one launch a build,
+    recorded as ``occ_launches`` in run_engine's ``index_build`` span, and
+    the arrays (C[] from the last row) equal the CPU build's."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain occ checkpoints ran on CUDA tensors")
+
+    monkeypatch.setattr(index_build, "occ_checkpoints_plain", plain)
+    ref = with_n_runs(random_genome(300_001, seed=211), 3, 40, seed=212)
+    before = index_build.occ_checkpoints.launches
+    idx = build_index(ref, device=cuda)
+    assert index_build.occ_checkpoints.launches == before + 1
+    monkeypatch.undo()
+    want = build_index(ref, device="cpu")
+    for f in ("text", "sa", "bwt", "occ_ckpt", "counts"):
+        assert torch.equal(getattr(idx, f).cpu(), getattr(want, f)), f
+    monkeypatch.setattr(index_build, "occ_checkpoints_plain", plain)
+    mk = lambda c: FastaSet(names=["r"], starts=np.array([0]),  # noqa: E731
+                            lengths=np.array([len(c)]), codes=c)
+    out = run_engine(mk(ref), mk(ref[1000:60_000].copy()),
+                     Config(min_length=20), device=cuda)
+    assert out.stats["phases"][0]["phase"] == "index_build"
+    assert out.stats["phases"][0]["occ_launches"] == 1
+    assert index_build.occ_checkpoints.launches == before + 2
 
 
 @pytest.mark.parametrize("engine", ["seed", "scan"])
