@@ -185,14 +185,13 @@ Phases, each of which raises on failure (exit status non-zero):
          joins a one-rank NCCL group, rank 0 on cuda:0) on the headline
          pair at ``-l 20``, plain and with ``-shard``: 59,101 each, bytes
          == 5a's;
-     9b. config #5 (phase 6's files) through the replicated mesh branch
-         (seed_mode.find_seed_matches_mesh) and the one-slab-per-rank
-         branch (sharded.find_seed_matches_sharded_mesh) called directly
-         with that group's one-rank mesh, so their gathers and reductions
-         run over NCCL on the card: 307,706 each, listing bytes == 6a's;
-         each prints its stage seconds (``gather`` = the collectives),
-         rounds, pairs, peak device memory and the card's name and power
-         limit.
+     9b. config #5 (phase 6's files) through the replicated engine
+         (seed_mode.find_seed_matches) and the one-slab-per-rank branch
+         (sharded.find_seed_matches_sharded_mesh), each given that
+         group's one-rank mesh, so their gathers and reductions run over
+         NCCL on the card: 307,706 each, listing bytes == 6a's; each
+         prints its stage seconds (``gather`` = the collectives), rounds,
+         pairs, peak device memory and the card's name and power limit.
   e. the extension kernel (seed_mode.extend_runs) against its plain
      version (_extend_core over ext_arrays of both texts) on the card,
      exact, on the merged, span-filtered runs that 5d's and 6a's calls
@@ -2085,10 +2084,11 @@ def _mesh_listing(ref_set, qry_set, m) -> bytes:
 
 def _mesh_phase(label: str, fn, index, ref_set, qry_set, cfg, mesh,
                 want: int, listing: bytes, smi: str, tap) -> dict:
-    """Phase 9b: one forced mesh branch on the card; count, listing bytes
-    against ``listing``, stage seconds (``gather`` = the collectives),
-    rounds, pairs and peak device memory; one extension launch and no
-    extension table (``tap``, and none in ``index.derived``)."""
+    """Phase 9b: one engine entry given the one-rank mesh on the card;
+    count, listing bytes against ``listing``, stage seconds (``gather`` =
+    the collectives), rounds, pairs and peak device memory; one extension
+    launch and no extension table (``tap``, and none in
+    ``index.derived``)."""
     import torch
 
     tap.reset()
@@ -2101,6 +2101,8 @@ def _mesh_phase(label: str, fn, index, ref_set, qry_set, cfg, mesh,
     tap.check(label)
     if "ext_table" in index.derived:
         raise AssertionError(f"9b {label}: an ext_table was built")
+    if "gather" not in m.stats["stage_s"]:
+        raise AssertionError(f"9b {label}: no collective ran")
     text = _mesh_listing(ref_set, qry_set, m)
     st = {"matches": int(m.length.size), "wall_s": wall,
           "stage_s": m.stats["stage_s"], "rounds": m.stats["rounds"],
@@ -2633,7 +2635,8 @@ def run() -> int:
         _log(f"[chr1 6b] {CHR1_SLABS}-slab listing == replicated listing")
         _log("[chr1] " + json.dumps(chr1, sort_keys=True))
 
-        # 9b. config #5 through both mesh branches over the NCCL group
+        # 9b. config #5 through the replicated engine on the one-rank
+        # mesh and the sharded mesh branch over the NCCL group
         from slamem_tpu_torch.dist import sharded
         from slamem_tpu_torch.dist.mesh import make_mesh
 
@@ -2644,7 +2647,7 @@ def run() -> int:
         index = build_index(sets[0].with_separators()[0],
                             Config.occ_block, "cuda")
         for label, fn in (
-                ("9b replicated", seed_mode.find_seed_matches_mesh),
+                ("9b replicated", seed_mode.find_seed_matches),
                 ("9b sharded", sharded.find_seed_matches_sharded_mesh)):
             mesh_runs[label] = _mesh_phase(
                 label, fn, index, *sets, Config(min_length=CHR1_L), mesh,

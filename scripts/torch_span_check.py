@@ -19,7 +19,7 @@ FASTA files and ``cli_job`` jobs, in this process.
    names of the device events, which must hold no ``slamem:`` range.
 2. Cost of tracing on: for ``chr1-pair.job`` and ``salmonella10.job``,
    ``--pairs`` pairs of jobs in turns, one with ``-v`` and JSON records
-   (every stage mark synchronised), one without; the seconds of each.
+   (every engine stage synchronised), one without; the seconds of each.
 
 Prints ``[span]`` lines and writes every number to ``--out``.
 """

@@ -85,7 +85,7 @@ def initialize_multihost(device: str | torch.device = "cuda",
             local = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(local)
             # bound to its card, NCCL builds its communicator here, not
-            # inside the first collective (which a stage clock would read)
+            # inside the first collective (which a stage span would time)
             backend, kw = "nccl", {"device_id": local}
         else:
             backend = "gloo"
@@ -119,7 +119,7 @@ def make_mesh(n_devices: int | None = None,
               device: str | torch.device = "cuda") -> Mesh:
     """The mesh of ``n_devices`` ranks (default: the world) on this
     process's device. ``n_devices`` must be the world size, or 1: the
-    one-rank view (no group), which runs the single-device programs."""
+    one-rank view (no group: a collective over it returns its input)."""
     dev = resolve_device(device)
     world = world_size()
     n = world if n_devices is None else n_devices

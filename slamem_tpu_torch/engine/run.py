@@ -24,7 +24,7 @@ from slamem_tpu_torch.index.build import (FMIndex, build_index,
                                           occ_checkpoints)
 from slamem_tpu_torch.io.fasta import FastaSet, revcomp_codes
 from slamem_tpu_torch.utils.device import resolve_device, synchronize
-from slamem_tpu_torch.utils.log import PhaseLog, active_log
+from slamem_tpu_torch.utils.log import call_log
 from slamem_tpu_torch.utils.profile import maybe_trace
 
 
@@ -89,7 +89,7 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
     ``SLAMEM_TRACE_DIR`` traces the queries (utils/profile.py).
     """
     dev = resolve_device(device)
-    log = active_log() or PhaseLog(enabled=cfg.verbose)
+    log = call_log(cfg.verbose)
     n_records = len(log.records)
     t0 = time.perf_counter()
     rtext, rstarts = ref_set.with_separators()

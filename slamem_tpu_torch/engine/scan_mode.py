@@ -45,6 +45,7 @@ from slamem_tpu_torch.kernels.rank import (interleaved_rows, nibble_rows,
                                            rank_rows, rank_rows_nib,
                                            rank_rows_nib_plain,
                                            rank_rows_plain, scan_lanes)
+from slamem_tpu_torch.utils.log import engine_stages, span
 
 # Chunk width for chr-scale scans. The capped-depth state at position i is
 # a pure function of q[i:i+L] (the module-docstring exactness argument), so
@@ -231,24 +232,27 @@ def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
 def find_scan_matches(index: FMIndex, query_text: np.ndarray, cfg: Config,
                       mesh=None) -> seed_mode.SeedMatches:
     """Scan frontend + shared pair/run backend (see seed_mode); ``mesh``
-    goes on to the backend, as in the JAX package."""
+    goes on to the backend, as in the JAX package. Stages ``upload`` and
+    ``frontend`` (the scan), then the backend's."""
     L = cfg.min_length
-    clock = seed_mode.StageClock(index.device, cfg.verbose)
-    # N-padding: no spurious intervals
-    qp, qt = seed_mode.query_to_device(query_text, index.device)
-    clock.mark("upload")
-    m = int(qp.shape[0])
-    C = _SCAN_CHUNK
-    los, ws = [], []
-    for a in range(0, m, C):
-        lo_c, w_c = scan_intervals(index, qt[a:a + C + L], L,
-                                   rank_kernel=cfg.rank_kernel)
-        take = min(C, m - a)
-        los.append(lo_c[:take])
-        ws.append(w_c[:take])
-    lo = torch.cat(los)
-    width = torch.cat(ws)
-    clock.mark("frontend")
-    # FM hits never touch specials: the plain SA is the all-valid view
-    return seed_mode.pairs_to_matches(index, lo, width, L, m, cfg, index.sa,
-                                      qt=qt, clock=clock, mesh=mesh)
+    with engine_stages(index.device, cfg.verbose) as stage_s:
+        with span("upload"):
+            # N-padding: no spurious intervals
+            qp, qt = seed_mode.query_to_device(query_text, index.device)
+        with span("frontend"):
+            m = int(qp.shape[0])
+            C = _SCAN_CHUNK
+            los, ws = [], []
+            for a in range(0, m, C):
+                lo_c, w_c = scan_intervals(index, qt[a:a + C + L], L,
+                                           rank_kernel=cfg.rank_kernel)
+                take = min(C, m - a)
+                los.append(lo_c[:take])
+                ws.append(w_c[:take])
+            lo = torch.cat(los)
+            width = torch.cat(ws)
+        # FM hits never touch specials: the plain SA is the all-valid view
+        matches = seed_mode.pairs_to_matches(index, lo, width, L, m, cfg,
+                                             index.sa, qt=qt, mesh=mesh)
+    matches.stats["stage_s"] = stage_s
+    return matches

@@ -52,8 +52,6 @@ the pair total plans the rounds, and derived tables are cached in
 from __future__ import annotations
 
 import dataclasses
-import functools
-import time
 
 import numpy as np
 import torch
@@ -64,7 +62,7 @@ from slamem_tpu_torch.kernels.buckets import load_kernel as load_buckets
 from slamem_tpu_torch.kernels.extend import load_kernel as load_extend
 from slamem_tpu_torch.kernels.rank import popcount32
 from slamem_tpu_torch.kernels.seedkeys import load_kernel as load_seedkeys
-from slamem_tpu_torch.utils.device import synchronize
+from slamem_tpu_torch.utils.log import engine_stages, span
 from slamem_tpu_torch.utils.pack2 import codes_to_device
 
 _I32MAX = int(np.iinfo(np.int32).max)
@@ -72,30 +70,6 @@ _SA_INVALID = -(1 << 31)          # sign bit of an int32 sa_aug row
 # the JAX package's pad word 0 (uint32 max): pad rows of a slab clamp into
 # its last bucket
 _PAD_WORD0 = (1 << 32) - 1
-
-
-class StageClock:
-    """Stage times in seconds (``stats['stage_s']``).
-
-    With ``verbose`` (``cfg.verbose``, ``-v``) or under a running torch
-    profiler, each mark waits for the device, so a stage's time includes
-    its kernels, not only their launch. Otherwise a mark reads the host's
-    clock alone: the stage's host seconds, launches and the host reads
-    that wait for the card, and the device runs on unsynchronised.
-    """
-
-    def __init__(self, device: torch.device, verbose: bool = False) -> None:
-        self.device = device
-        self.sync = verbose or torch._C._autograd._profiler_enabled()
-        self.stage_s: dict[str, float] = {}
-        self._t = time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        if self.sync:
-            synchronize(self.device)
-        now = time.perf_counter()
-        self.stage_s[stage] = self.stage_s.get(stage, 0.0) + now - self._t
-        self._t = now
 
 
 # ---------------------------------------------------------------------------
@@ -1041,6 +1015,15 @@ def merge_runs(batches: list[RunBatch]) -> RunBatch:
     return RunBatch(diag[gstart], qstart[gstart], qend[gend])
 
 
+def _fetch_events(sd: torch.Tensor, sq: torch.Tensor, ed: torch.Tensor,
+                 eq: torch.Tensor) -> tuple[np.ndarray, ...]:
+    """Boundary events on the device -> host int32 (start diag', start q,
+    end diag', end q), one copy."""
+    ev = torch.cat([sd, sq, ed, eq]).cpu().numpy()
+    ns, ne = int(sd.shape[0]), int(ed.shape[0])
+    return ev[:ns], ev[ns:2 * ns], ev[2 * ns:2 * ns + ne], ev[2 * ns + ne:]
+
+
 class BoundaryBatch:
     """Start / end boundary events (int64 diag', qpos) gathered across
     rounds; ``runs`` pairs them into maximal runs."""
@@ -1083,8 +1066,9 @@ class SeedMatches:
     refpos: np.ndarray   # int64
     qpos: np.ndarray     # int64
     length: np.ndarray   # int64
-    # {'pairs', 'k', 'stride', 'rounds', 'stage_s'} from pairs_to_matches;
-    # find_seed_matches adds 'frontend', 'bytes_min'
+    # {'pairs', 'k', 'stride', 'rounds'} from pairs_to_matches ('ranks'
+    # too given a mesh); the entry points add 'stage_s', and
+    # find_seed_matches 'frontend', 'bytes_min'
     stats: dict | None = None
 
 
@@ -1095,14 +1079,35 @@ class SeedMatches:
 _GROWTH_MIN_CAPACITY = 1 << 22
 
 
-def _plan_blocks(cum: np.ndarray, m: int, capacity: int,
-                 position_block: int) -> list[tuple[int, int]]:
-    """Slice [0, m) into blocks whose pair totals fit the round capacity."""
+def _plan_rounds(total: int, one_round: int, cumsum, m: int, m_s: int,
+                 stride: int, cfg: Config) -> tuple[list[tuple[int, int]],
+                                                    int]:
+    """(rounds, m_off) of m_s query samples (m positions) with ``total``
+    pairs, for every round planner (the replicated engine's and the slab
+    programs'): no round without pairs; one when ``one_round`` (the most
+    pairs one round would hold at once) fits the capacity and every sample
+    fits one block; else blocks cut from ``cumsum()``, the inclusive
+    cumsum of each sample's pairs on the device (one read), each within
+    the capacity. m_off keeps every diagonal d = refpos - qpos + m_off
+    non-negative, sortable and collision-free."""
+    capacity = int(cfg.pair_capacity)
+    if capacity >= _GROWTH_MIN_CAPACITY and total > 3 * capacity:
+        capacity = max(capacity, int(cfg.pair_capacity_max))
+    block = min(cfg.position_block, m_s)
+    # q can reach m_s - 1 + block samples, (m_s - 1 + block) * stride
+    # positions
+    m_off = (m + block + 2 if stride == 1
+             else (m_s + block + 2) * stride + 2) // 2
+    if total == 0:
+        return [], m_off
+    if one_round <= capacity and m_s <= block:
+        return [(0, m_s)], m_off
+    cum = np.concatenate(([0], cumsum().cpu().numpy()))
     blocks = []
     start = 0
-    while start < m:
+    while start < m_s:
         end = int(np.searchsorted(cum, cum[start] + capacity, side="right")) - 1
-        end = min(max(end, start + 1), m, start + position_block)
+        end = min(max(end, start + 1), m_s, start + block)
         if cum[end] - cum[start] > capacity:  # single position too wide
             raise NotImplementedError(
                 f"query position {start} has interval width "
@@ -1110,7 +1115,7 @@ def _plan_blocks(cum: np.ndarray, m: int, capacity: int,
                 f"{capacity}; raise pair_capacity for this input")
         blocks.append((start, end))
         start = end
-    return blocks
+    return blocks, m_off
 
 
 def query_bucket(m: int) -> int:
@@ -1153,158 +1158,71 @@ def find_seed_matches(index, query_text: np.ndarray, cfg: Config,
     """All maximal matches of length >= cfg.min_length (mode filters later).
 
     The query is padded to a length bucket (N padding produces no windows)
-    and everything runs on ``index.device``: upload -> plan (plan_fused)
-    -> tables (seed_table, bucket_table; cached per index) -> frontend
-    (packing + bucket or join search) -> pairs_to_matches, whose device
-    tail (merge, span filter, extension, length keep) fetches only the
-    kept matches.
-    ``stats`` carries the plan and the time of each stage (StageClock:
-    device-synchronised with ``cfg.verbose`` or under a profiler). A
-    ``mesh`` of more than one rank (dist/mesh.py) runs the rounds
-    data-parallel over its ranks (pairs_to_matches); with no mesh or one
-    rank the path is the single-device one, as in the JAX package.
+    and everything runs on ``index.device``, stage by stage (spans of the
+    active PhaseLog, utils/log.py): ``upload`` -> ``tables`` (plan_fused,
+    seed_table, bucket_table; cached per index) -> ``frontend`` (packing +
+    bucket or join search) -> pairs_to_matches, whose device tail (merge,
+    span filter, extension, length keep) fetches only the kept matches.
+    ``stats`` carries the plan and ``stage_s``, the stages' seconds. A
+    ``mesh`` (dist/mesh.py) runs the rounds data-parallel over its ranks,
+    with their gathers even at one rank (pairs_to_matches); the matches
+    are the single-device path's.
     """
-    return _find_seed_matches(index, query_text, cfg,
-                              functools.partial(pairs_to_matches, mesh=mesh))
-
-
-def find_seed_matches_mesh(index, query_text: np.ndarray, cfg: Config,
-                           mesh) -> SeedMatches:
-    """find_seed_matches with the rounds dispatched through the mesh branch
-    (pairs_to_matches_mesh), at any mesh size, one rank included. Every
-    rank passes the same index and query and gets the same matches."""
-    return _find_seed_matches(index, query_text, cfg, functools.partial(
-        pairs_to_matches_mesh, mesh=mesh))
-
-
-def _find_seed_matches(index, query_text: np.ndarray, cfg: Config,
-                       backend) -> SeedMatches:
-    clock = StageClock(index.device, cfg.verbose)
-    qp, qt = query_to_device(query_text, index.device)
-    clock.mark("upload")
-    m_p = int(qp.shape[0])
-    k, stride, use_bucket = plan_fused(index, m_p, cfg)
-    refk, sa_aug = seed_table(index, k)
-    probes = 12  # roofline_bytes charges the join this, as the JAX package
-    if use_bucket:
-        starts, shift, probes = bucket_table(index, k)
-    clock.mark("tables")
-    qk, qvalid = packed_key_words(qt, k, stride)
-    if use_bucket:
-        lo, width = _bucket_intervals(refk, starts, qk, qvalid, shift, probes,
-                                      k)
-    else:
-        lo, width = _join_intervals(refk, qk, qvalid)
-    clock.mark("frontend")
-    matches = backend(index, lo, width, k, m_p, cfg, sa_aug, qt=qt,
-                      stride=stride, clock=clock)
+    with engine_stages(index.device, cfg.verbose) as stage_s:
+        with span("upload"):
+            qp, qt = query_to_device(query_text, index.device)
+        with span("tables"):
+            m_p = int(qp.shape[0])
+            k, stride, use_bucket = plan_fused(index, m_p, cfg)
+            refk, sa_aug = seed_table(index, k)
+            probes = 12  # roofline_bytes charges the join this, as JAX does
+            if use_bucket:
+                starts, shift, probes = bucket_table(index, k)
+        with span("frontend"):
+            qk, qvalid = packed_key_words(qt, k, stride)
+            if use_bucket:
+                lo, width = _bucket_intervals(refk, starts, qk, qvalid, shift,
+                                              probes, k)
+            else:
+                lo, width = _join_intervals(refk, qk, qvalid)
+        matches = pairs_to_matches(index, lo, width, k, m_p, cfg, sa_aug,
+                                   qt=qt, stride=stride, mesh=mesh)
     k_words = 2 if k > 16 else 1
     matches.stats.update(
         frontend="bucket" if use_bucket else "join",
         bytes_min=roofline_bytes(index.n, m_p, k_words,
                                  matches.stats["pairs"], bucket=use_bucket,
-                                 stride=stride, probes=probes))
+                                 stride=stride, probes=probes),
+        stage_s=stage_s)
     return matches
-
-
-def _plan_rounds(lo: torch.Tensor, width: torch.Tensor, m: int, cfg: Config,
-                 stride: int) -> tuple[int, int, list[tuple[int, int]]]:
-    """(pair total, m_off, rounds) of pairs_to_matches, from one scalar
-    read of the pair total (and the width cumsum when it needs rounds)."""
-    capacity = int(cfg.pair_capacity)
-    total = int(width.sum(dtype=torch.int64))
-    if capacity >= _GROWTH_MIN_CAPACITY and total > 3 * capacity:
-        capacity = max(capacity, int(cfg.pair_capacity_max))
-    m_s = int(lo.shape[0])
-    block = min(cfg.position_block, m_s)
-    # q can reach m_s - 1 + block samples, (m_s - 1 + block) * stride
-    # positions; keep d = refpos - qpos + diag_mod/2 sortable and
-    # collision-free per diagonal
-    diag_mod = (m + block + 2 if stride == 1
-                else (m_s + block + 2) * stride + 2)
-    m_off = diag_mod // 2
-    if total == 0:
-        blocks = []
-    elif total <= capacity and m_s <= block:
-        blocks = [(0, m_s)]
-    else:
-        cum_h = np.concatenate(([0], torch.cumsum(
-            width, 0, dtype=torch.int64).cpu().numpy()))
-        blocks = _plan_blocks(cum_h, m_s, capacity, block)
-    return total, m_off, blocks
 
 
 def pairs_to_matches(index, lo: torch.Tensor, width: torch.Tensor, k: int,
                      m: int, cfg: Config,
                      sa_aug: torch.Tensor | None = None,
                      qt: torch.Tensor | None = None, stride: int = 1,
-                     clock: StageClock | None = None,
                      mesh=None) -> SeedMatches:
     """Shared backend: intervals at depth k -> maximal matches >= min_length.
 
-    One scalar read of the pair total plans the rounds: one round when it
-    fits ``cfg.pair_capacity`` (a memory budget), else the host cuts the
-    width cumsum into rounds that fit, growing the budget to
-    ``pair_capacity_max`` when the total is over 3x it. Each round expands,
-    sorts and compacts on the device, and its run triples stay there for
-    the device tail (_finish). At stride > 1 (sparse seeding; ``qt`` = the
-    padded query on the device) lo/width, rounds and runs are in sample
-    space until the tail extends the merged runs. With
-    ``cfg.match_backend="boundary"``, ``qt`` given and stride 1, each round
-    ships start / end events to the host instead (_expand_flags_core),
-    which pairs them into runs that need no merge (BoundaryBatch); any
-    other backend name runs the sort backend, as in the JAX package. A
-    ``mesh`` of more than one rank takes pairs_to_matches_mesh.
-    """
-    if mesh is not None and mesh.size > 1:
-        return pairs_to_matches_mesh(index, lo, width, k, m, cfg, sa_aug,
-                                     qt=qt, stride=stride, clock=clock,
-                                     mesh=mesh)
-    use_boundary = (qt is not None and cfg.match_backend == "boundary"
-                    and stride == 1)
-    if sa_aug is None:
-        sa_aug = index.sa  # all rows valid
-    if clock is None:
-        clock = StageClock(index.device, cfg.verbose)
-    total, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
-    if use_boundary:
-        bb = BoundaryBatch()
-        for start, end in blocks:
-            sd, sq, ed, eq = expand_block_to_boundaries(
-                index.text, qt, sa_aug, lo, width, start, end, m_off, k)
-            ev = torch.cat([sd, sq, ed, eq]).cpu().numpy()   # one fetch
-            ns, ne = int(sd.shape[0]), int(ed.shape[0])
-            bb.add(ev[:ns], ev[ns:2 * ns], ev[2 * ns:2 * ns + ne],
-                   ev[2 * ns + ne:])
-        clock.mark("expand")
-        matches = finalize_matches(bb.runs(m_off), k, cfg)  # runs whole
-        clock.mark("merge")
-    else:
-        frags = [expand_block_to_runs(sa_aug, lo, width, start, end, m_off,
-                                      stride) for start, end in blocks]
-        clock.mark("expand")
-        matches = _finish(index, frags, m_off, qt, k, stride, cfg, clock)
-    matches.stats = {"pairs": total, "k": k, "stride": stride,
-                     "rounds": len(blocks), "stage_s": clock.stage_s}
-    return matches
-
-
-def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
-                          k: int, m: int, cfg: Config,
-                          sa_aug: torch.Tensor | None = None,
-                          qt: torch.Tensor | None = None, stride: int = 1,
-                          clock: StageClock | None = None,
-                          *, mesh) -> SeedMatches:
-    """pairs_to_matches with the rounds data-parallel over ``mesh`` (any
-    size; dist/seed.py): every rank plans the same rounds from the same
-    replicated intervals and takes them ``mesh.size`` at a time, rank r
-    block r of each group (an empty block when the group is short). The
-    run triples come back gathered in rank order and stay on the device:
-    every rank runs the device tail (_finish) on the same fragments, on
-    its own device, and holds the same result. Boundary events go to the
-    host, as in pairs_to_matches. Stages: ``expand`` (this rank's blocks)
-    and ``gather`` (the collectives); ``stats['pairs']`` is the summed
-    pair count of the blocks.
+    One scalar read of the pair total plans the rounds (_plan_rounds): one
+    round when it fits ``cfg.pair_capacity`` (a memory budget), else the
+    host cuts the width cumsum into rounds that fit, growing the budget to
+    ``pair_capacity_max`` when the total is over 3x it. Each round
+    expands, sorts and compacts on the device, and its run triples stay
+    there for the tail (_finish). With no mesh, stage ``expand`` holds the
+    plan and every round, in order: no stack, no collective. Given a mesh
+    (one rank included), the rounds run ``mesh.size`` at a time, rank r
+    block r of each group (an empty block when the group is short), each
+    round an ``expand`` and a ``gather`` of every rank's triples in rank
+    order (dist/seed.py), so every rank runs the tail on the same
+    fragments. At stride > 1 (sparse seeding; ``qt`` = the padded query on
+    the device) lo/width, rounds and runs are in sample space until the
+    tail extends the merged runs. With ``cfg.match_backend="boundary"``,
+    ``qt`` given and stride 1, each round ships start / end events to the
+    host instead (_expand_flags_core, one fetch a round), which pairs them
+    into runs that need no merge (BoundaryBatch); any other backend name
+    runs the sort backend, as in the JAX package. ``stats['pairs']`` is
+    the plan's pair total.
     """
     from slamem_tpu_torch.dist.seed import (expand_boundaries_gathered,
                                             expand_runs_gathered)
@@ -1313,43 +1231,49 @@ def pairs_to_matches_mesh(index, lo: torch.Tensor, width: torch.Tensor,
                     and stride == 1)
     if sa_aug is None:
         sa_aug = index.sa  # all rows valid
-    if clock is None:
-        clock = StageClock(index.device, cfg.verbose)
-    _, m_off, blocks = _plan_rounds(lo, width, m, cfg, stride)
     m_s = int(lo.shape[0])
-    frags = []
+    frags = []   # the merge takes any partition
     bb = BoundaryBatch()
-    pairs = 0
-    for g in range(0, len(blocks), mesh.size):
-        group = blocks[g:g + mesh.size]
-        start, end = (group[mesh.rank] if mesh.rank < len(group)
-                      else (m_s, m_s))
-        if use_boundary:
-            starts, ends, n = expand_boundaries_gathered(
-                mesh, index.text, qt, sa_aug, lo, width, start, end, m_off,
-                k, clock)
-            ev = torch.cat([starts, ends]).cpu().numpy()   # one fetch
-            ns = int(starts.shape[0])
-            bb.add(ev[:ns, 0], ev[:ns, 1], ev[ns:, 0], ev[ns:, 1])
-        else:
-            runs, _, n = expand_runs_gathered(
-                mesh, sa_aug, lo, width, start, end, m_off, stride, clock)
-            frags.append(runs.unbind(1))   # the merge takes any partition
-        pairs += int(n)
-        clock.mark("gather")
+    with span("expand"):
+        total = int(width.sum(dtype=torch.int64))
+        blocks, m_off = _plan_rounds(
+            total, total, lambda: torch.cumsum(width, 0, dtype=torch.int64),
+            m, m_s, stride, cfg)
+        if mesh is None:
+            for start, end in blocks:
+                if use_boundary:
+                    bb.add(*_fetch_events(*expand_block_to_boundaries(
+                        index.text, qt, sa_aug, lo, width, start, end, m_off,
+                        k)))
+                else:
+                    frags.append(expand_block_to_runs(
+                        sa_aug, lo, width, start, end, m_off, stride))
+    if mesh is not None:
+        for g in range(0, len(blocks), mesh.size):
+            group = blocks[g:g + mesh.size]
+            start, end = (group[mesh.rank] if mesh.rank < len(group)
+                          else (m_s, m_s))
+            if use_boundary:
+                bb.add(*expand_boundaries_gathered(
+                    mesh, index.text, qt, sa_aug, lo, width, start, end,
+                    m_off, k))
+            else:
+                frags.append(expand_runs_gathered(
+                    mesh, sa_aug, lo, width, start, end, m_off, stride))
     if use_boundary:
-        matches = finalize_matches(bb.runs(m_off), k, cfg)  # runs whole
-        clock.mark("merge")
+        with span("merge"):
+            matches = finalize_matches(bb.runs(m_off), k, cfg)
     else:
-        matches = _finish(index, frags, m_off, qt, k, stride, cfg, clock)
-    matches.stats = {"pairs": pairs, "k": k, "stride": stride,
-                     "rounds": len(blocks), "ranks": mesh.size,
-                     "stage_s": clock.stage_s}
+        matches = _finish(index, frags, m_off, qt, k, stride, cfg)
+    matches.stats = {"pairs": total, "k": k, "stride": stride,
+                     "rounds": len(blocks)}
+    if mesh is not None:
+        matches.stats["ranks"] = mesh.size
     return matches
 
 
 def _finish(index, frags: list, m_off: int, qt: torch.Tensor | None, k: int,
-            stride: int, cfg: Config, clock: StageClock) -> SeedMatches:
+            stride: int, cfg: Config) -> SeedMatches:
     """The sort backend's tail, on the device, for every round plan and
     slab program. ``frags`` lists int32 (diag', qstart, qend) fragment
     tensors (diag' = diagonal + ``m_off``), in any partition.
@@ -1366,33 +1290,34 @@ def _finish(index, frags: list, m_off: int, qt: torch.Tensor | None, k: int,
     mismatches, so extending fragments independently would over-extend.
     Exact for any number of rounds.
     """
-    L = int(cfg.min_length)
-    w_min = span_w_min(L, k, stride) if stride != 1 else max(1, L - k + 1)
-    if frags:
-        d, qs, qe = merge_runs_device(*(torch.cat(c) for c in zip(*frags)),
-                                      w_min)
-    else:
-        d = qs = qe = torch.zeros(0, dtype=torch.int32, device=index.device)
-    diag = d.to(torch.int64) - m_off
-    qs, qe = qs.to(torch.int64), qe.to(torch.int64)
-    if stride == 1:
-        return _fetch_matches(diag + qs, qs, qe - qs + k, clock, "merge")
-    clock.mark("merge")
-    ext_r = ext_table(index) if index.device.type == "cpu" else None
-    qstart, qend = extend_runs(diag, qs, qe, index.text, qt, stride, k,
-                               ext_r)
-    length = k + qend - qstart
-    keep = length >= L
-    return _fetch_matches(diag[keep] + qstart[keep], qstart[keep],
-                          length[keep], clock, "extend")
+    with span("merge"):
+        L = int(cfg.min_length)
+        w_min = (span_w_min(L, k, stride) if stride != 1
+                 else max(1, L - k + 1))
+        if frags:
+            d, qs, qe = merge_runs_device(
+                *(torch.cat(c) for c in zip(*frags)), w_min)
+        else:
+            d = qs = qe = torch.zeros(0, dtype=torch.int32,
+                                      device=index.device)
+        diag = d.to(torch.int64) - m_off
+        qs, qe = qs.to(torch.int64), qe.to(torch.int64)
+        if stride == 1:
+            return _fetch_matches(diag + qs, qs, qe - qs + k)
+    with span("extend"):
+        ext_r = ext_table(index) if index.device.type == "cpu" else None
+        qstart, qend = extend_runs(diag, qs, qe, index.text, qt, stride, k,
+                                   ext_r)
+        length = k + qend - qstart
+        keep = length >= L
+        return _fetch_matches(diag[keep] + qstart[keep], qstart[keep],
+                              length[keep])
 
 
 def _fetch_matches(refpos: torch.Tensor, qpos: torch.Tensor,
-                   length: torch.Tensor, clock: StageClock,
-                   stage: str) -> SeedMatches:
+                   length: torch.Tensor) -> SeedMatches:
     """Kept int64 matches on the device -> host SeedMatches, one copy."""
     out = torch.stack([refpos, qpos, length]).cpu().numpy()
-    clock.mark(stage)
     return SeedMatches(refpos=out[0], qpos=out[1], length=out[2])
 
 

@@ -37,7 +37,6 @@ from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.engine.run import run_engine
 from slamem_tpu_torch.engine.scan_mode import find_scan_matches
 from slamem_tpu_torch.engine.seed_mode import (find_seed_matches,
-                                               find_seed_matches_mesh,
                                                query_to_device)
 from slamem_tpu_torch.index import build as index_build
 from slamem_tpu_torch.index.build import build_index, rank_batch
@@ -1072,10 +1071,10 @@ def _tuples(m):
                                     dict(min_length=20, sparse_seeds="off"),
                                     dict(min_length=20, pair_capacity=4096)])
 def test_one_rank_nccl_mesh_branches_equal_single_device(nccl_mesh, fields):
-    """The replicated and the one-slab-per-rank mesh branches, their
-    gathers and reductions over a one-rank NCCL group on the card, list
-    the single-device engine's matches (~200 kbp; dense, sparse, several
-    rounds)."""
+    """The replicated engine given a one-rank NCCL group on the card and
+    the one-slab-per-rank mesh branch, their gathers and reductions over
+    that group, list the single-device engine's matches (~200 kbp; dense,
+    sparse, several rounds)."""
     assert nccl_mesh.group is not None and nccl_mesh.device.type == "cuda"
     ref = with_n_runs(random_genome(200_000, seed=153), 3, 40, seed=154)
     qry = with_n_runs(mutate(ref, 0.01, 0.001, seed=155), 2, 30, seed=156)
@@ -1083,7 +1082,7 @@ def test_one_rank_nccl_mesh_branches_equal_single_device(nccl_mesh, fields):
     cfg = Config(**fields)
     want = _tuples(find_seed_matches(idx, qry, cfg))
     assert len(want) > 0
-    for fn in (find_seed_matches_mesh, find_seed_matches_sharded_mesh):
+    for fn in (find_seed_matches, find_seed_matches_sharded_mesh):
         got = fn(idx, qry, cfg, nccl_mesh)
         assert _tuples(got) == want, fn.__name__
         assert "gather" in got.stats["stage_s"]

@@ -29,6 +29,9 @@ from slamem_tpu_torch.utils import log as log_mod
 from slamem_tpu_torch.utils.log import PhaseLog
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
 
+# the replicated engine's stage records
+STAGES = ("upload", "tables", "frontend", "expand", "merge", "extend")
+
 # The port's CPU path is many tiny ops: one intra-op thread per test worker
 # keeps parallel workers from oversubscribing the cores with idle spinners.
 torch.set_num_threads(1)
@@ -97,32 +100,43 @@ def _sets():
     return mk("R", ref), mk("Q", qry)
 
 
+def _stages(st: dict) -> list[str]:
+    """The replicated engine's stage records of one call, in order (one
+    round)."""
+    return ["upload", "tables", "frontend", "expand", "merge",
+            *(["extend"] if st["stride"] > 1 else [])]
+
+
 @pytest.mark.parametrize("json_mode", [False, True])
 def test_phase_log_records_and_lines(json_mode, monkeypatch, capsys):
-    """-v prints one [slamem] line per phase (index build, query, emit), or
-    one JSON object per line with SLAMEM_LOG_JSON=1; the query record
-    carries the plan and the roofline bytes, and no rate is derived from
-    the bytes."""
+    """-v prints one [slamem] line per phase (index build, the engine's
+    stages, query, emit), or one JSON object per line with
+    SLAMEM_LOG_JSON=1; the query record carries the plan and the roofline
+    bytes, and no rate is derived from the bytes."""
     monkeypatch.setenv("SLAMEM_LOG_JSON", "1" if json_mode else "0")
     ref_set, q_set = _sets()
     out = run_engine(ref_set, q_set, Config(min_length=14, verbose=True),
                      device="cpu")
     err = capsys.readouterr().err.strip().splitlines()
     recs = out.stats["phases"]
-    assert [r["phase"] for r in recs] == ["index_build", "query", "emit"]
-    q = recs[1]
     st = out.stats["searches"][0]
+    names = ["index_build", *_stages(st), "query", "emit"]
+    assert [r["phase"] for r in recs] == names
+    qi = names.index("query")
+    q = recs[qi]
     assert (q["pairs"], q["rounds"], q["seed_k"], q["stride"],
             q["bytes"]) == (st["pairs"], st["rounds"], st["k"],
                             st["stride"], st["bytes_min"])
     assert q["bp"] == len(q_set.codes) and q["seconds"] > 0
-    assert recs[2]["matches"] == out.stats["matches"]
+    assert recs[-1]["matches"] == out.stats["matches"]
     assert "gb_per_s" not in q and "hbm_fraction" not in q
     if json_mode:
         assert [json.loads(line) for line in err] == recs
     else:
-        assert len(err) == 3 and err[1].startswith("[slamem] query: ")
-        assert f"seed_k={st['k']}" in err[1] and "t0_ns" not in err[1]
+        assert len(err) == len(names)
+        assert err[qi].startswith("[slamem] query: ")
+        assert f"seed_k={st['k']}" in err[qi] and "t0_ns" not in err[qi]
+        assert err[1].startswith("[slamem] upload: ")
     # a fixed clock (0.5 s) makes the record exact: its ends, the Mbp/s of
     # its bp, its bytes as given and no rate derived from them
     log = PhaseLog(enabled=False)
@@ -158,20 +172,29 @@ def test_cli_verbose_records_every_span(monkeypatch, tmp_path, capsys):
                  qp]) == 0
     recs = [json.loads(line) for line in capsys.readouterr().err.splitlines()
             if line.startswith("{")]
-    assert [r["phase"] for r in recs] == [
+    job = [r for r in recs if r["phase"] not in STAGES]
+    stages = recs[6:-4]
+    assert [r["phase"] for r in job] == [
         "fasta_read", "fasta_parse", "fasta_read", "fasta_parse",
         "index_build", "join", "query", "emit", "render", "write"]
+    assert recs[:6] + recs[-4:] == job
     for r in recs:
         assert r["t0_ns"] <= r["t1_ns"]
         assert r["seconds"] == pytest.approx((r["t1_ns"] - r["t0_ns"]) / 1e9,
                                              abs=1e-6)
-    # one after another, in the job's order
-    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(recs, recs[1:]))
-    by = {r["phase"]: r for r in recs}
+    # one after another, in the job's order; the engine's stages one after
+    # another inside the query
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(job, job[1:]))
+    by = {r["phase"]: r for r in job}
+    assert [r["phase"] for r in stages][:4] == ["upload", "tables",
+                                                "frontend", "expand"]
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(stages, stages[1:]))
+    assert (by["join"]["t1_ns"] <= by["query"]["t0_ns"] <= stages[0]["t0_ns"]
+            and stages[-1]["t1_ns"] <= by["query"]["t1_ns"])
     size = out.stat().st_size
     assert by["render"]["bytes"] == by["write"]["bytes"] == size
     assert recs[0]["bytes"] == (tmp_path / "r.fa").stat().st_size
-    assert (recs[3]["bp"], recs[3]["seqs"]) == (recs[6]["bp"] - 1, 2)
+    assert (recs[3]["bp"], recs[3]["seqs"]) == (by["query"]["bp"] - 1, 2)
     assert by["join"]["entries"] == 2
     assert by["emit"]["matches"] == len(out.read_text().splitlines()) - 2
 
@@ -183,10 +206,11 @@ def test_run_engine_records_only_its_own_phases(capsys):
     cfg = Config(min_length=14)
     a = run_engine(ref_set, q_set, cfg, device="cpu")
     b = run_engine(ref_set, q_set, cfg, device="cpu")
+    names = ["index_build", *_stages(a.stats["searches"][0]), "query",
+             "emit"]
     for out in (a, b):
-        assert [r["phase"] for r in out.stats["phases"]] == [
-            "index_build", "query", "emit"]
-    assert a.stats["phases"][2]["t1_ns"] <= b.stats["phases"][0]["t0_ns"]
+        assert [r["phase"] for r in out.stats["phases"]] == names
+    assert a.stats["phases"][-1]["t1_ns"] <= b.stats["phases"][0]["t0_ns"]
     assert capsys.readouterr().err == ""
     # under an active log the call's records are its own slice of it
     log = PhaseLog(enabled=False)
@@ -194,8 +218,7 @@ def test_run_engine_records_only_its_own_phases(capsys):
         with log_mod.span("before"):
             pass
         c = run_engine(ref_set, q_set, cfg, device="cpu")
-    assert [r["phase"] for r in log.records] == [
-        "before", "index_build", "query", "emit"]
+    assert [r["phase"] for r in log.records] == ["before", *names]
     assert c.stats["phases"] == log.records[1:]
     assert log_mod.active_log() is None
     with log_mod.span("none", bp=3) as rec:
@@ -204,15 +227,15 @@ def test_run_engine_records_only_its_own_phases(capsys):
 
 def test_off_path_makes_no_sync_and_no_profiler_call(monkeypatch, tmp_path,
                                                       capsys):
-    """Without -v and with no profiler running, a job's stage marks do not
-    wait for the device and nothing calls into the profiler; with -v
-    every mark waits."""
+    """Without -v and with no profiler running, a job's engine stages do
+    not wait for the device and nothing calls into the profiler; with -v
+    every stage waits."""
     from torch.autograd import profiler as autograd_profiler
 
-    from slamem_tpu_torch.engine import seed_mode
+    from slamem_tpu_torch.utils import device
 
     syncs = []
-    monkeypatch.setattr(seed_mode, "synchronize", syncs.append)
+    monkeypatch.setattr(device, "synchronize", syncs.append)
 
     def refuse(*a, **kw):
         raise AssertionError("the profiler was called")
@@ -229,21 +252,25 @@ def test_off_path_makes_no_sync_and_no_profiler_call(monkeypatch, tmp_path,
             rp, qp]
     assert main(argv) == 0
     assert syncs == [] and capsys.readouterr().err == ""
+    monkeypatch.setenv("SLAMEM_LOG_JSON", "1")
     assert main(["-v", *argv]) == 0
-    assert len(syncs) >= 5      # upload, tables, frontend, expand, ...
+    recs = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+            if line.startswith("{")]
+    # one wait a stage: upload, tables, frontend, expand, merge, ...
+    assert len(syncs) == sum(r["phase"] in STAGES for r in recs) >= 5
 
 
 def test_no_span_enters_a_profiler_the_program_did_not_start(
         monkeypatch, tmp_path, capsys):
     """Under a profiler the caller started, with -v and SLAMEM_TRACE_DIR
     set, no slamem: range appears, no second profile starts and no trace
-    is written; the stage marks wait for the device."""
+    is written; the engine's stages wait for the device."""
     from torch.profiler import ProfilerActivity, profile
 
-    from slamem_tpu_torch.engine import seed_mode
+    from slamem_tpu_torch.utils import device
 
     syncs = []
-    monkeypatch.setattr(seed_mode, "synchronize", syncs.append)
+    monkeypatch.setattr(device, "synchronize", syncs.append)
     trace_dir = tmp_path / "trace"
     monkeypatch.setenv("SLAMEM_TRACE_DIR", str(trace_dir))
     rp, qp = _fasta_pair(tmp_path, entries=2)
@@ -275,9 +302,12 @@ def test_trace_dir_writes_a_chrome_trace(monkeypatch, tmp_path, capsys):
     events = json.loads(path.read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     spans = {n for n in names if str(n).startswith("slamem:")}
-    assert spans == {f"slamem:{n}" for n in (
+    stages = {n for n in spans if n[len("slamem:"):] in STAGES}
+    assert spans - stages == {f"slamem:{n}" for n in (
         "fasta_read", "fasta_parse", "index_build", "join", "query", "emit",
         "render", "write")}
+    assert {f"slamem:{n}" for n in ("upload", "tables", "frontend", "expand",
+                                    "merge")} <= stages
     # the job's range holds the engine's own "query" range
     assert {"job", "query"} <= names and len(events) > 10
     assert (tmp_path / "a.txt").read_bytes() == (tmp_path / "b.txt"

@@ -394,24 +394,25 @@ def one_rank():
     dict(min_length=14, pair_capacity=100)])
 def test_one_rank_mesh_branches_equal_single_device(one_rank, fields):
     """At world size 1 over a real group (the CPU image of the chip check's
-    one-rank NCCL mesh), the forced mesh branches — replicated and
-    sharded — list the single-device engine's tuples, and their stages
-    include the collectives."""
+    one-rank NCCL mesh), the replicated engine given the mesh and the
+    forced one-slab-per-rank branch list the single-device engine's
+    tuples, and their stages include the collectives; with no mesh the
+    replicated engine gathers nothing."""
     assert one_rank.size == 1 and one_rank.group is not None
     ref, qry = INPUTS["shard"]
     tidx = _port_index(jax_build(ref))
     cfg = Config(**fields)
-    want = _tuples(seed_mode.find_seed_matches(tidx, qry, cfg))
-    rep = seed_mode.find_seed_matches_mesh(tidx, qry, cfg, one_rank)
+    single = seed_mode.find_seed_matches(tidx, qry, cfg)
+    want = _tuples(single)
+    rep = seed_mode.find_seed_matches(tidx, qry, cfg, one_rank)
     shd = sharded.find_seed_matches_sharded_mesh(tidx, qry, cfg, one_rank)
     assert _tuples(rep) == want and len(want) > 0
     assert _tuples(shd) == want
     assert "gather" in rep.stats["stage_s"]
     assert "gather" in shd.stats["stage_s"]
     assert rep.stats["ranks"] == 1 and shd.stats["shards"] == 1
-    # the normal entries take the single-device path on one rank
-    assert "ranks" not in seed_mode.find_seed_matches(
-        tidx, qry, cfg, one_rank).stats
+    assert "gather" not in single.stats["stage_s"]
+    assert "ranks" not in single.stats
 
 
 def test_collectives_on_one_rank(one_rank):

@@ -254,8 +254,9 @@ def test_virtual_slabs_match_jax_and_replicated(monkeypatch, case):
     if case not in _JAX_REPLICATED:
         assert st["pairs"] == jm.stats["pairs"] > 0
     assert (st["rounds"] > 1) == (case == "multi_block")
-    stages = {"upload", "tables", "frontend", "expand", "slab_merge",
-              "merge"} | ({"extend"} if st["stride"] > 1 else set())
+    stages = {"upload", "slab_tables", "slab_frontend", "slab_expand",
+              "slab_merge", "merge"} | ({"extend"} if st["stride"] > 1
+                                       else set())
     assert set(st["stage_s"]) == stages
 
 

@@ -9,9 +9,17 @@ the MEMs it lists, at slab counts 2, 3 and 8, with per-slab direct tables
 as ``tests/test_torch_sharded.py`` does.
 
 A CLI job records the program's stages as spans of its PhaseLog inside
-``query``: ``slab_tables``, ``slab_frontend``, and per round
-``slab_expand`` and ``slab_merge``, with their fields. Without ``-v`` the
-records add no synchronise and no host read.
+``query``: ``upload``, ``slab_tables``, ``slab_frontend``, per round
+``slab_expand`` and ``slab_merge``, then the tail's ``merge`` and
+``extend``, with their fields. Without ``-v`` the records add no
+synchronise and no host read.
+
+Every engine's stages (the replicated engine dense, sparse, at several
+rounds, on the boundary backend and given a one-rank mesh, the slab
+program, the scan engine) tile its call: the records follow one another, and ``stats['stage_s']``
+is their seconds summed by name. The replicated engine's host reads are
+pinned as the slab program's are, and under ``cfg.verbose`` each of its
+stages waits for the device once.
 """
 
 import functools
@@ -28,10 +36,12 @@ from benchmark.reference.mems import ReferenceTable
 from slamem_tpu_torch.cli.main import main
 from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.dist import sharded
-from slamem_tpu_torch.engine import seed_mode
+from slamem_tpu_torch.dist.mesh import make_mesh
+from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.engine.run import run_engine
 from slamem_tpu_torch.index.build import build_index
 from slamem_tpu_torch.io.fasta import FastaSet, Sequence, write_fasta
+from slamem_tpu_torch.utils import device
 from slamem_tpu_torch.utils.log import PhaseLog
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
 
@@ -42,6 +52,9 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 BUDGET = 1 << 20
 SLAB_SPANS = ("slab_tables", "slab_frontend", "slab_expand", "slab_merge")
+# the slab program's stage records at -l 14 (stride 7): its spans between
+# the upload and the device tail
+SLAB_STAGES = ("upload", *SLAB_SPANS, "merge", "extend")
 
 
 def _set(name: str, codes: np.ndarray) -> FastaSet:
@@ -117,15 +130,15 @@ def test_cli_job_records_the_slab_spans_inside_query(pair, monkeypatch,
             if line.startswith("{")]
     assert [r["phase"] for r in recs] == [
         "fasta_read", "fasta_parse", "fasta_read", "fasta_parse",
-        "index_build", *SLAB_SPANS, "query", "emit", "render", "write"]
+        "index_build", *SLAB_STAGES, "query", "emit", "render", "write"]
     by = {r["phase"]: r for r in recs}
     query = by["query"]
-    inner = recs[5:9]
+    stages = recs[5:5 + len(SLAB_STAGES)]
     assert all(query["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= query["t1_ns"]
-               for r in inner)
-    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(inner, inner[1:]))
-    assert sum(r["seconds"] for r in inner) <= query["seconds"]
-    tables, front, expand, merge = inner
+               for r in stages)
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(stages, stages[1:]))
+    assert sum(r["seconds"] for r in stages) <= query["seconds"]
+    tables, front, expand, merge = stages[1:5]
     assert tables["slabs"] == 8 and tables["rows"] % 8 == 0
     assert tables["rows"] >= len(ref) + 1
     assert tables["R"] >= 2 and tables["R"] & (tables["R"] - 1) == 0
@@ -173,7 +186,7 @@ def _host_touches(mp) -> list[str]:
     ``bool()``), by name, as it happens, while ``mp`` (a monkeypatch
     context) lasts."""
     seen = []
-    mp.setattr(seed_mode, "synchronize",
+    mp.setattr(device, "synchronize",
                lambda dev: seen.append("synchronize"))
     for attr in ("cpu", "numpy", "item", "tolist", "__int__", "__bool__"):
         orig = getattr(torch.Tensor, attr)
@@ -212,9 +225,98 @@ def test_slab_records_add_no_sync_and_no_host_read(pair, monkeypatch,
             monkeypatch.context() as mp:
         seen = _host_touches(mp)
         m = sharded.find_seed_matches_sharded(index, qry, cfg, n_slabs=8)
-    assert set(r["phase"] for r in log.records) == set(SLAB_SPANS)
+    assert set(r["phase"] for r in log.records) == set(SLAB_STAGES)
     assert (m.stats["rounds"] > 1) == (capacity is not None)
     assert seen == READS[capacity] and m.refpos.size > 0
+
+
+def _slabs8(index, qry, cfg):
+    return sharded.find_seed_matches_sharded(index, qry, cfg, n_slabs=8)
+
+
+def _mesh1(index, qry, cfg):
+    return seed_mode.find_seed_matches(index, qry, cfg, make_mesh(1, "cpu"))
+
+
+_REPLICATED = ("upload", "tables", "frontend", "expand", "merge")
+# case -> (engine entry, Config fields, its stage names)
+ENGINES = {
+    "dense": (seed_mode.find_seed_matches,
+              dict(min_length=14, sparse_seeds="off"), _REPLICATED),
+    "sparse": (seed_mode.find_seed_matches, dict(min_length=14),
+               (*_REPLICATED, "extend")),
+    "rounds": (seed_mode.find_seed_matches,
+               dict(min_length=14, pair_capacity=100),
+               (*_REPLICATED, "extend")),
+    "boundary": (seed_mode.find_seed_matches,
+                 dict(min_length=14, match_backend="boundary"), _REPLICATED),
+    "slabs8": (_slabs8, dict(min_length=14), SLAB_STAGES),
+    "mesh1": (_mesh1, dict(min_length=14),
+              (*_REPLICATED, "gather", "extend")),
+    "scan": (scan_mode.find_scan_matches, dict(min_length=14, engine="scan"),
+             ("upload", "frontend", "expand", "merge")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENGINES))
+def test_stage_s_sums_the_calls_abutting_stage_records(pair, small_tables,
+                                                       case):
+    """Under an active log every record of an engine call is one of its
+    stages, each opening after the one before closed (the slab program
+    plans K and its rounds between two stages); ``stage_s`` holds each
+    stage's records summed, and nothing else. With no active log the call
+    records into a log of its own and reports the same stages."""
+    ref, qry = pair
+    fn, fields, names = ENGINES[case]
+    cfg = Config(**fields)
+    index = build_index(_set("R", ref).with_separators()[0], cfg.occ_block,
+                        "cpu")
+    with PhaseLog(enabled=False).activate() as log:
+        m = fn(index, qry, cfg)
+    recs = log.records
+    assert recs[0]["phase"] == "upload" and m.refpos.size > 0
+    assert {r["phase"] for r in recs} == set(names)
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(recs, recs[1:]))
+    st = m.stats["stage_s"]
+    assert st == {n: sum(r["seconds"] for r in recs if r["phase"] == n)
+                  for n in names}
+    assert (m.stats["rounds"] > 1) == (case == "rounds")
+    assert set(fn(index, qry, cfg).stats["stage_s"]) == set(names)
+
+
+# The replicated engine's host reads on the CPU before its stages were
+# spans, in order, its tables cached: the query's upload (its wire's two
+# numpy views), the pair total, at several rounds the width cumsum, the
+# tail's one fetch of the matches
+REPLICATED_READS = {None: ["numpy", "numpy", "__int__", "cpu", "numpy"],
+                    100: ["numpy", "numpy", "__int__", "cpu", "numpy",
+                          "cpu", "numpy"]}
+
+
+@pytest.mark.parametrize("verbose", [False, True])
+@pytest.mark.parametrize("capacity", sorted(REPLICATED_READS, key=str))
+def test_replicated_stages_add_no_sync_and_no_host_read(pair, monkeypatch,
+                                                        capacity, verbose):
+    """With the log off (not verbose, no profiler) the replicated engine's
+    stages make no synchronise, and it reads from the device what it read
+    before its stages were spans, at one round and at several; with
+    ``cfg.verbose`` each stage record waits for the device once, and the
+    reads are the same."""
+    ref, qry = pair
+    fields = {} if capacity is None else {"pair_capacity": capacity}
+    cfg = Config(min_length=14, verbose=verbose, **fields)
+    index = build_index(_set("R", ref).with_separators()[0], cfg.occ_block,
+                        "cpu")
+    seed_mode.find_seed_matches(index, qry, cfg)   # the tables, cached
+    with PhaseLog(enabled=False).activate() as log, \
+            monkeypatch.context() as mp:
+        seen = _host_touches(mp)
+        m = seed_mode.find_seed_matches(index, qry, cfg)
+    assert (m.stats["rounds"] > 1) == (capacity is not None)
+    assert [x for x in seen if x != "synchronize"] == REPLICATED_READS[
+        capacity]
+    assert seen.count("synchronize") == (len(log.records) if verbose else 0)
+    assert [r["phase"] for r in log.records] == [*_REPLICATED, "extend"]
 
 
 def test_reference_and_slab_program_load_no_jax(tmp_path):
