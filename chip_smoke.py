@@ -10,7 +10,8 @@ Phases, each of which raises on failure (exit status non-zero):
      endpoint-extension kernel of the seed engine (csrc/extend.cu), the key
      kernels of the seed tables (csrc/seedkeys.cu: the seed table's rows
      and the query's key pack), the bucket-start kernel (csrc/buckets.cu)
-     and the index build's occ checkpoint kernel (csrc/occ.cu);
+     and the index build's occ checkpoint and window-key kernels
+     (csrc/occ.cu, csrc/sakeys.cu);
   o. the occ checkpoint kernel (index/build.py occ_checkpoints) on a BWT
      of chr1's 250,000,001 symbols at occ_block 128 == its plain version,
      aligned and 1 byte past a 16-byte boundary (the byte path), timed
@@ -18,6 +19,11 @@ Phases, each of which raises on failure (exit status non-zero):
      cumsum along the contiguous dimension, and the library yardstick:
      torch.cumsum of the block counts along the contiguous dimension (and
      along the outer one, the parent's call);
+  k. the suffix sort's window-key kernel (index/build.py sa_keys) at
+     chr1's 250,000,001 symbols == sa_keys_plain on the chr1 cells' kind
+     of text (N runs, SEP last), aligned and 1 byte past a 16-byte
+     boundary, and on one with a special at one position in 240, timed
+     with its byte bound (n read, 8 n written) and the plain version;
   2. hold each standalone rank kernel against its plain PyTorch version,
      exact integer equality, and time both: K0 (rank_rows, interleaved
      table) and the nibble kernel (rank_rows_nib, nibble table), each on
@@ -127,7 +133,8 @@ Phases, each of which raises on failure (exit status non-zero):
      calls them; it also keeps 5d's and 6a's merged runs for phase e);
      each CLI call of 5a-5d, 6a, 6b and 9a must have launched the seed
      table's kernel once, the key pack once, the index build's occ
-     checkpoint kernel once (its cold build) and the bucket-start kernel
+     checkpoint and window-key kernels once each (its cold build; each
+     also logs the suffix sort's sorts) and the bucket-start kernel
      once (5a-5c, 6a, 9a), never (5d, the join frontend) or once a slab
      (6b: 8);
      t. the seed tables' kernels against their plain versions on the card,
@@ -178,14 +185,18 @@ Phases, each of which raises on failure (exit status non-zero):
          (5e), and ``-shard -b`` alone == the default call.
      6a and 6b print the plan (K, stride, slabs, shift, probes, R, rounds,
      pairs), index build and query seconds, stage seconds, peak device
-     memory and the card's name and power limit;
+     memory and the card's name and power limit; 6a's peak must not pass
+     15,559,308,288 B (14.491 GiB: every chr1 run's peak when the suffix
+     sort started from 1-character ranks);
   9. the mesh (dist/) on the card at world size 1 over NCCL:
      9a. the CLI under the launcher variables (JAX_COORDINATOR_ADDRESS =
          127.0.0.1:<free port>, JAX_NUM_PROCESSES=1, JAX_PROCESS_ID=0; it
          joins a one-rank NCCL group, rank 0 on cuda:0) on the headline
          pair at ``-l 20``, plain and with ``-shard``: 59,101 each, bytes
          == 5a's;
-     9b. config #5 (phase 6's files) through the replicated engine
+     9b. config #5's index built alone: its seconds, sorts and own peak
+         device memory (over what is held before it); then config #5
+         (phase 6's files) through the replicated engine
          (seed_mode.find_seed_matches) and the one-slab-per-rank branch
          (sharded.find_seed_matches_sharded_mesh), each given that
          group's one-rank mesh, so their gathers and reductions run over
@@ -203,16 +214,16 @@ Phases, each of which raises on failure (exit status non-zero):
      wrapper, the plain version and its core alone by CUDA events, the
      bound from the runs' bytes and the sector bound (40 B a run + the
      32-byte sectors under its four windows).
-Phases run in the order 1, o, 2, 2w, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c,
+Phases run in the order 1, o, k, 2, 2w, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c,
 7d, 5a, 9a, 7a, 5b, 5d, t (5 Mbp), 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b,
 9b, t (config #5), e. Prints the card and its power limit (nvidia-smi), a
 ``{"kernels": [...]}`` line (each kernel's launches on its path,
 exactness, time, plain time and lower bound; the standalone rank kernels'
 path is the scan kernel that runs their device function, the any-width
 nibble kernel's is 2w's rank_nib calls; the unpack,
-extension, table and occ kernels' launches are 5a's, their times phase u's
-at the query shape, phase e's at 6a's runs, phase t's at 6a's shapes and
-phase o's at chr1's size),
+extension, table, occ and window-key kernels' launches are 5a's, their
+times phase u's at the query shape, phase e's at 6a's runs, phase t's at
+6a's shapes and phases o's and k's at chr1's size),
 and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -1519,6 +1530,78 @@ def _phase_o(index_build) -> dict:
     return res
 
 
+# every chr1 run's peak when the suffix sort started from 1-character ranks
+CHR1_PEAK_BYTES = 15_559_308_288
+
+
+def _phase_k(index_build) -> dict:
+    """Phase k: the suffix sort's window-key kernel (index_build.sa_keys) at
+    chr1's 250,000,001 symbols against sa_keys_plain, exact: the chr1
+    cells' kind of text (uniform codes, 20 N runs of 10,000, SEP last),
+    aligned and 1 byte past a 16-byte boundary, and a stress text with a
+    special at one position in 240 (2^20 N, 2^10 SEP, scattered), where
+    windows that hold one are everywhere; times by CUDA events of the raw
+    launch on each, the wrapper and the plain version. Bound: bytes, n
+    read and 8 n written. Whether a build launches it once is the CLI
+    phases' check (``_table_launches``)."""
+    import torch
+
+    from slamem_tpu_torch.kernels.sakeys import load_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(HEADLINE["seed"] + 1)
+
+    def codes():
+        return torch.randint(0, 4, (OCC_N + 16,), generator=gen,
+                             device="cuda", dtype=torch.uint8)
+
+    whole = codes()
+    for at in torch.randint(0, OCC_N - 10_000, (20,), generator=gen,
+                            device="cuda").tolist():
+        whole[at:at + 10_000] = 4
+    whole[OCC_N - 1] = whole[OCC_N] = 5
+    stress = codes()
+    for code, count in ((4, 1 << 20), (5, 1 << 10)):
+        stress[torch.randint(0, OCC_N, (count,), generator=gen,
+                             device="cuda")] = code
+    stress[OCC_N - 1] = 5
+    text, shifted, stress = whole[:OCC_N], whole[1:OCC_N + 1], \
+        stress[:OCC_N]
+    err = 0
+    for label, t in (("", text), (", 1 byte past 16-byte alignment",
+                                  shifted), (", scattered specials", stress)):
+        got = index_build.sa_keys(t)
+        want = index_build.sa_keys_plain(t)
+        torch.cuda.synchronize()
+        err = max(err, _exact(f"k window keys{label}", (got,), (want,)))
+        del want
+    kernel = load_kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw(t=text):
+        if kernel.fn(t.data_ptr(), t.numel(), got.data_ptr(), stream):
+            raise RuntimeError("window key kernel launch failed")
+
+    ms = _cuda_ms(raw, 50)
+    off_ms = _cuda_ms(lambda: raw(shifted), 20)
+    stress_ms = _cuda_ms(lambda: raw(stress), 20)
+    wrapper_ms = _cuda_ms(lambda: index_build.sa_keys(text), 20)
+    plain_ms = _cuda_ms(lambda: index_build.sa_keys_plain(text), 3)
+    res = {"n": OCC_N, "ms": ms, "offset_ms": off_ms,
+           "scattered_ms": stress_ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "max_abs_err": err,
+           **_bound(9 * OCC_N, 0)}
+    res["bound_share_pct"] = 100.0 * res["bound_ms"] / ms
+    _log(f"[keys k] {OCC_N} symbols: kernel == plain (aligned, 1 byte "
+         f"past, scattered specials); kernel {ms:.6f} ms "
+         f"({res['bound_share_pct']:.1f}% of the bound "
+         f"{res['bound_ms']:.6f} ms, {res['bound_by']}), 1 byte off "
+         f"{off_ms:.6f} ms, one special in 240 {stress_ms:.6f} ms, wrapper "
+         f"{wrapper_ms:.6f} ms, plain {plain_ms:.6f} ms")
+    del whole, text, shifted, stress, got
+    torch.cuda.empty_cache()
+    return res
+
+
 def _seed_table_t(seed_mode, label: str, index, k: int) -> dict:
     """Phase t, the seed table of one index at one K: seed_table_rows'
     two kernels (the plane pass and the gather) against
@@ -1843,36 +1926,40 @@ def _verbose_stats(stderr: str) -> dict:
 def _table_launches(seed_mode) -> dict:
     """The table kernels' launches since the last reset (and resets them):
     the seed table, the bucket starts, the query's key pack and the index
-    build's occ checkpoints."""
+    build's occ checkpoints and window keys."""
     from slamem_tpu_torch.index import build as index_build
 
     got = {"seed_table": seed_mode.seed_table_rows.launches,
            "bucket_starts": seed_mode.bucket_starts.launches,
            "packed_key_words": seed_mode.packed_key_words.launches,
-           "occ_checkpoints": index_build.occ_checkpoints.launches}
+           "occ_checkpoints": index_build.occ_checkpoints.launches,
+           "sa_keys": index_build.sa_keys.launches}
     seed_mode.seed_table_rows.launches = 0
     seed_mode.bucket_starts.launches = 0
     seed_mode.packed_key_words.launches = 0
     index_build.occ_checkpoints.launches = 0
+    index_build.sa_keys.launches = 0
     return got
 
 
 def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
                 rp: str, qp: str, out: str, buckets: int = 1) -> dict:
     """One default-engine CLI run on the card: count, plan, stage times,
-    peak device memory. Raises if the count is not ``want``, unless the
-    call launched the extension kernel once and built no extension table
-    on the card (``tap``), or unless it launched the seed-table kernel
-    once and the occ checkpoint kernel once (the CLI builds its index
-    cold), the bucket-start kernel ``buckets`` times (a table, one a slab,
-    none for the join frontend) and the key pack once (one engine
-    call)."""
+    peak device memory, the suffix sort's sorts. Raises if the count is
+    not ``want``, unless the call launched the extension kernel once and
+    built no extension table on the card (``tap``), or unless it launched
+    the seed-table kernel once and the occ checkpoint and window-key
+    kernels once each (the CLI builds its index cold), the bucket-start
+    kernel ``buckets`` times (a table, one a slab, none for the join
+    frontend) and the key pack once (one engine call)."""
     import torch
 
     from slamem_tpu_torch.engine import seed_mode
+    from slamem_tpu_torch.index import build as index_build
 
     tap.reset()
     _table_launches(seed_mode)
+    sorts = index_build.suffix_array.sorts
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1883,11 +1970,13 @@ def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
     st = _verbose_stats(stderr)
     st["extend_launches"] = tap.check(label)
     st["table_launches"] = _table_launches(seed_mode)
+    st["sa_sorts"] = index_build.suffix_array.sorts - sorts
     if st["table_launches"] != {"seed_table": 1, "bucket_starts": buckets,
-                                "packed_key_words": 1, "occ_checkpoints": 1}:
+                                "packed_key_words": 1, "occ_checkpoints": 1,
+                                "sa_keys": 1}:
         raise AssertionError(f"{label}: table kernel launches "
                              f"{st['table_launches']}, expected 1, "
-                             f"{buckets}, 1, 1")
+                             f"{buckets}, 1, 1, 1")
     st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     st["matches"] = len(_listing_matches(out))
     st["wall_s"] = wall
@@ -1902,7 +1991,7 @@ def _seed_phase(cli_main, tap, label: str, flags: list[str], want: int,
          f"{wall:.3f} s; peak device memory {st['peak_gib']:.3f} "
          f"GiB; extension kernel launches {st['extend_launches']}, card "
          f"extension tables built 0; table kernel launches "
-         f"{st['table_launches']}")
+         f"{st['table_launches']}; suffix sort: {st['sa_sorts']} sort(s)")
     if st["matches"] != want:
         raise AssertionError(f"seed {label}: {st['matches']} matches, "
                              f"expected {want}")
@@ -2156,7 +2245,7 @@ def run() -> int:
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
     from slamem_tpu_torch.kernels import (buckets, extend, occ, rank,
-                                          seedkeys, unpack2)
+                                          sakeys, seedkeys, unpack2)
     from slamem_tpu_torch.utils import pack2, synth
 
     tap = _ExtendTap(seed_mode)
@@ -2171,13 +2260,14 @@ def run() -> int:
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = {"rank and scan kernels": pool.submit(rank.load_kernel),
                   "unpack kernel": pool.submit(unpack2.load_kernel),
                   "extension kernel": pool.submit(extend.load_kernel),
                   "key kernels": pool.submit(seedkeys.load_kernel),
                   "bucket kernel": pool.submit(buckets.load_kernel),
-                  "occ kernel": pool.submit(occ.load_kernel)}
+                  "occ kernel": pool.submit(occ.load_kernel),
+                  "window-key kernel": pool.submit(sakeys.load_kernel)}
         built = {label: f.result() for label, f in builds.items()}
     _log(f"[build] {', '.join(f'{k} {v.path.name}' for k, v in built.items())}"
          f" in {time.perf_counter() - t0:.3f} s")
@@ -2188,6 +2278,8 @@ def run() -> int:
 
     # o. the index build's occ checkpoint kernel at chr1's size
     occ_o = _phase_o(index_build)
+    # k. the suffix sort's window-key kernel at chr1's size
+    keys_k = _phase_k(index_build)
 
     # 2. each kernel vs its plain version on the headline reference's
     # tables, at the scan's batch shape, and on a table larger than L2
@@ -2619,6 +2711,12 @@ def run() -> int:
         chr1 = {"6a": _seed_phase(cli_main, tap, "6a", ["-l", str(CHR1_L)],
                                   CHR1_MATCHES, rp, qp, seed_out)}
         replays["6a"] = tap.take()
+        peak = round(chr1["6a"]["peak_gib"] * 2**30)
+        _log(f"[chr1 6a] suffix sort: {chr1['6a']['sa_sorts']} sort(s); "
+             f"peak device memory {peak} B (at most {CHR1_PEAK_BYTES})")
+        if peak > CHR1_PEAK_BYTES:
+            raise AssertionError(f"6a: peak device memory {peak} B > "
+                                 f"{CHR1_PEAK_BYTES}")
         _check_maximal(ref, qry, _listing_matches(seed_out))
         _log("[chr1 6a] every match exact and maximal")
         del ref, qry
@@ -2644,8 +2742,21 @@ def run() -> int:
         if mesh.group is None or mesh.device != torch.device("cuda", 0):
             raise AssertionError("9b: no one-rank group on cuda:0")
         sets = (read_fasta(rp), read_fasta(qp))
-        index = build_index(sets[0].with_separators()[0],
-                            Config.occ_block, "cuda")
+        rtext = sets[0].with_separators()[0]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sorts = index_build.suffix_array.sorts
+        t0 = time.perf_counter()
+        index = build_index(rtext, Config.occ_block, "cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() - held
+        _log(f"[chr1 9b] the index build alone: {build_s:.6f} s, "
+             f"{index_build.suffix_array.sorts - sorts} sort(s), its own "
+             f"peak {build_peak} B ({build_peak / 2**30:.3f} GiB) over the "
+             f"{held} B held before it; {smi}")
+        del rtext
         for label, fn in (
                 ("9b replicated", seed_mode.find_seed_matches),
                 ("9b sharded", sharded.find_seed_matches_sharded_mesh)):
@@ -2814,6 +2925,19 @@ def run() -> int:
         "bound_by": occ_o["bound_by"],
         # torch.cumsum of the block counts along the contiguous dimension
         "library_ms": occ_o["library_ms"]})
+    # the suffix sort's window keys at chr1's size (phase k); launches:
+    # 5a's (one a build, as in every CLI phase)
+    kernels.append({
+        "name": "sa_keys", "route": "cuda",
+        "source": "slamem_tpu_torch/kernels/csrc/sakeys.cu",
+        "replaces": "none (the first prefix-doubling rounds from "
+                    "initial_ranks in slamem_tpu/index/build.py"
+                    "::suffix_array)",
+        "launches": launches["sa_keys"],
+        "max_abs_err": keys_k["max_abs_err"], "ms": keys_k["ms"],
+        "plain_ms": keys_k["plain_ms"], "bound_ms": keys_k["bound_ms"],
+        "bound_by": keys_k["bound_by"],
+        "library_ms": None})   # no one PyTorch call packs the windows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,7 +21,7 @@ from slamem_tpu_torch.dist.mesh import Mesh
 from slamem_tpu_torch.dist.sharded import find_seed_matches_sharded
 from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.index.build import (FMIndex, build_index,
-                                          occ_checkpoints)
+                                          occ_checkpoints, suffix_array)
 from slamem_tpu_torch.io.fasta import FastaSet, revcomp_codes
 from slamem_tpu_torch.utils.device import resolve_device, synchronize
 from slamem_tpu_torch.utils.log import call_log
@@ -95,12 +95,14 @@ def run_engine(ref_set: FastaSet, query_set: FastaSet, cfg: Config,
     rtext, rstarts = ref_set.with_separators()
     with log.phase("index_build", bp=len(rtext)) as rec:
         launches = occ_checkpoints.launches
+        sorts = suffix_array.sorts
         if index is None:
             index = build_index(rtext, cfg.occ_block, dev)
         elif index.device != dev:
             raise ValueError(f"index is on {index.device}, run asked for "
                              f"{dev}")
         rec["occ_launches"] = occ_checkpoints.launches - launches
+        rec["sa_sorts"] = suffix_array.sorts - sorts
         synchronize(dev)
     t_build = time.perf_counter() - t0
 

@@ -1,10 +1,13 @@
 """FM-index construction in PyTorch (port of ``slamem_tpu/index/build.py``).
 
-Suffix array by Manber–Myers prefix doubling: O(log n) rounds, each one
-``torch.sort`` of packed (rank, rank@+k) int64 keys; BWT is one gather and
-the occ checkpoints one kernel on the card (``occ_checkpoints``). The full
-suffix array stays on the device (int32, 4n bytes): a direct gather
-replaces a sampled-SA locate walk.
+Suffix array by one stable ``torch.sort`` of every suffix's first 27
+characters as a base-5 int64 (``sa_keys``: one kernel on the card), then
+Manber–Myers prefix doubling from 27 characters only where those prefixes
+repeat, each round one ``torch.sort`` of packed (rank, rank@+k) int64 keys;
+the sort whose ranks come out distinct gives the suffix array. BWT is one
+gather and the occ checkpoints one kernel on the card (``occ_checkpoints``).
+The full suffix array stays on the device (int32, 4n bytes): a direct
+gather replaces a sampled-SA locate walk.
 
 Alphabet / sort-order contract (shared with the engines and io/fasta.py):
 codes A=0 C=1 G=2 T=3, N=4, SEP=5. Every N/SEP position receives a UNIQUE
@@ -27,11 +30,13 @@ import torch
 
 from slamem_tpu_torch.io.fasta import CODE_N, CODE_SEP
 from slamem_tpu_torch.kernels.occ import load_kernel as load_occ
+from slamem_tpu_torch.kernels.sakeys import load_kernel as load_sa_keys
 from slamem_tpu_torch.utils.device import resolve_device
 from slamem_tpu_torch.utils.pack2 import codes_to_device
 
 BWT_SENTINEL = 6  # bwt "char" for the row whose suffix starts at position 0
 PACKED_UPLOAD_MIN = 1 << 20  # numpy texts from this length ride the wire
+SA_KEY_CHARS = 27            # characters a window key holds: 5^27 < 2^63
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,26 +71,44 @@ def initial_ranks(text: torch.Tensor) -> torch.Tensor:
     return torch.where(text >= CODE_N, pos, n + text.to(torch.int32))
 
 
-def _round_body(rank: torch.Tensor, k: int
+def _dense_ranks(is_new: torch.Tensor) -> torch.Tensor:
+    """Ranks of n sorted rows from ``is_new`` (n - 1 bools: row j + 1
+    starts a new rank): 0 at the first row, one more at each new rank."""
+    new = torch.zeros(is_new.shape[0] + 1, dtype=torch.int32,
+                      device=is_new.device)
+    new[1:] = is_new
+    return torch.cumsum(new, 0, dtype=torch.int32)
+
+
+def _round_sort(rank: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One prefix-doubling round: ranks by 2k chars from ranks by k chars.
+    """The sort of one prefix-doubling round: (order, new ranks in sorted
+    order) by 2k chars from ranks by k chars.
 
     rank@+k is a shift with -1 past the end (a suffix shorter than k sorts
     smallest). The two int32 keys pack into one int64 as (rank+1, rank@k+1),
     both in [0, 2^31), so one ``torch.sort`` orders them lexicographically;
-    ties need no stable order because equal keys get equal new ranks. The
-    new ranks go back to position order by a scatter through the sort
-    permutation. Returns (new_rank, max_rank) with max_rank on the device.
+    ties need no stable order because equal keys get equal new ranks.
     """
     n = rank.shape[0]
     rank_k = torch.full_like(rank, -1)
     if k < n:
         rank_k[:n - k] = rank[k:]
     key = ((rank.to(torch.int64) + 1) << 32) | (rank_k.to(torch.int64) + 1)
+    del rank_k
     key_s, order = torch.sort(key)
-    is_new = torch.zeros(n, dtype=torch.int32, device=rank.device)
-    is_new[1:] = (key_s[1:] != key_s[:-1]).to(torch.int32)
-    new_rank_sorted = torch.cumsum(is_new, 0, dtype=torch.int32)
+    del key
+    return order, _dense_ranks(key_s[1:] != key_s[:-1])
+
+
+def _round_body(rank: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One prefix-doubling round: ranks by 2k chars from ranks by k chars
+    (``_round_sort``), back in position order by a scatter through the
+    sort permutation. Returns (new_rank, max_rank) with max_rank on the
+    device.
+    """
+    order, new_rank_sorted = _round_sort(rank, k)
     new_rank = torch.empty_like(rank)
     new_rank[order] = new_rank_sorted
     return new_rank, new_rank_sorted[-1]
@@ -109,14 +132,95 @@ def doubling_ranks(text: torch.Tensor) -> Iterator[torch.Tensor]:
         k *= 2
 
 
+def sa_keys_plain(text: torch.Tensor) -> torch.Tensor:
+    """sa_keys by torch ops: SA_KEY_CHARS passes, each a multiply-add of
+    one character's digit over every position."""
+    n = text.shape[0]
+    codes = torch.cat([text, torch.full((SA_KEY_CHARS - 1,), CODE_N,
+                                        dtype=torch.uint8,
+                                        device=text.device)])
+    key = torch.zeros(n, dtype=torch.int64, device=text.device)
+    live = torch.ones(n, dtype=torch.bool, device=text.device)
+    for j in range(SA_KEY_CHARS):
+        c = codes[j:j + n]
+        live &= c < CODE_N
+        key = key * 5 + torch.where(live, c.to(torch.int64) + 1, 0)
+    return key
+
+
+def sa_keys(text: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 window keys of a uint8 code text: key[i] holds the first
+    SA_KEY_CHARS characters of suffix i in base 5, the first character
+    most significant; A, C, G, T are the digits 1..4, and N, SEP and a
+    position past the text are 0, as is every digit from the first of
+    them on. So the keys order as the suffixes' first SA_KEY_CHARS
+    characters under the order contract, equal specials aside, and a key
+    holds a special exactly when ``key % 5 == 0``.
+
+    CUDA tensors launch ``slamem_sa_keys`` of ``kernels/csrc/sakeys.cu``
+    on the current stream (16 positions a thread from aligned 16-byte
+    loads at the text's real address, stores staged through shared
+    memory), without synchronising, and count the call in
+    ``sa_keys.launches``; an empty text launches nothing. CPU tensors take
+    sa_keys_plain.
+    """
+    if text.dtype != torch.uint8 or text.dim() != 1 or \
+            not text.is_contiguous():
+        raise ValueError(f"text must be a 1-D contiguous uint8 tensor, got "
+                         f"{tuple(text.shape)} {text.dtype}")
+    if text.device.type == "cpu":
+        return sa_keys_plain(text)
+    n = text.numel()
+    keys = torch.empty(n, dtype=torch.int64, device=text.device)
+    if n == 0:
+        return keys
+    with torch.cuda.device(text.device):
+        stream = torch.cuda.current_stream(text.device).cuda_stream
+        err = load_sa_keys().fn(text.data_ptr(), n, keys.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"window key kernel launch failed: CUDA error "
+                           f"{err}")
+    sa_keys.launches += 1
+    return keys
+
+
+sa_keys.launches = 0
+
+
 def suffix_array(text: torch.Tensor) -> torch.Tensor:
-    """Suffix array by prefix doubling (int32)."""
+    """Suffix array (int32) of a text that ends in its CODE_SEP terminator.
+
+    One stable sort of the window keys (``sa_keys``) ranks the suffixes by
+    their first SA_KEY_CHARS characters: a row is a new rank where its key
+    differs from the row before or holds a special. Equal keys that hold a
+    special are the same prefix with a special at the same offset, which
+    the contract orders by position, as the stable sort leaves them. While
+    the ranks repeat, one scatter puts them back in position order and a
+    doubling round from k = SA_KEY_CHARS sorts again (k doubling). The
+    sort whose ranks come out distinct gives the suffix array as its
+    permutation: no scatter and no argsort after it. One scalar read a
+    sort; each sort counts in ``suffix_array.sorts``.
+    """
     n = int(text.shape[0])
     if n <= 1:
         return torch.zeros(n, dtype=torch.int32, device=text.device)
-    for rank in doubling_ranks(text):
-        pass
-    return torch.argsort(rank).to(torch.int32)
+    key_s, order = torch.sort(sa_keys(text), stable=True)
+    suffix_array.sorts += 1
+    rank_s = _dense_ranks((key_s[1:] != key_s[:-1]) | (key_s[1:] % 5 == 0))
+    del key_s
+    k = SA_KEY_CHARS
+    while int(rank_s[-1]) != n - 1:
+        rank = torch.empty(n, dtype=torch.int32, device=text.device)
+        rank[order] = rank_s
+        del order, rank_s
+        order, rank_s = _round_sort(rank, k)
+        suffix_array.sorts += 1
+        del rank
+        k *= 2
+    return order.to(torch.int32)
+
+
+suffix_array.sorts = 0
 
 
 def occ_checkpoints_plain(bwt: torch.Tensor, occ_block: int

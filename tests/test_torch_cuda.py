@@ -4,7 +4,8 @@ scan kernel (``scan_lanes``, both table layouts), the 2-bit unpack kernel
 of the upload wire (``unpack_codes``), the seed engine's endpoint-extension
 kernel (``extend_runs``), the seed tables' key and bucket-start kernels
 (``seed_table_rows``, ``packed_key_words``, ``bucket_starts``), the index
-build's occ checkpoint kernel (``occ_checkpoints``), the scan,
+build's occ checkpoint and window-key kernels (``occ_checkpoints``,
+``sa_keys``), the scan,
 seed (sort and boundary backends) and
 virtual-slab engines on a CUDA device, and the mesh branches over a
 one-rank NCCL group, against their plain versions / CPU runs / the
@@ -44,7 +45,8 @@ from slamem_tpu_torch.io.fasta import (CODE_SEP, FastaSet, Sequence,
                                        write_fasta)
 from slamem_tpu_torch.kernels import rank
 from slamem_tpu_torch.utils import pack2
-from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
+from slamem_tpu_torch.utils.synth import (mutate, random_genome,
+                                          with_n_runs, with_repeats)
 
 pytestmark = pytest.mark.cuda
 
@@ -496,7 +498,118 @@ def test_build_index_launches_the_occ_kernel_once(cuda, monkeypatch):
                      Config(min_length=20), device=cuda)
     assert out.stats["phases"][0]["phase"] == "index_build"
     assert out.stats["phases"][0]["occ_launches"] == 1
+    assert out.stats["phases"][0]["sa_sorts"] == 1
     assert index_build.occ_checkpoints.launches == before + 2
+
+
+# text lengths around the window-key kernel's 16-position threads, its
+# 42-character spans, its 64-byte chunk path and its 4,096-position blocks
+SA_KEY_LENGTHS = (1, 2, 15, 16, 17, 26, 27, 28, 41, 42, 43, 63, 64, 65, 79,
+                  80, 81, 4095, 4096, 4097, 3 * 4096 + 27, (1 << 20) + 3)
+
+
+def _key_text(n: int, seed: int) -> np.ndarray:
+    """Random codes, specials at one position in eight (N and SEP)."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, size=n).astype(np.uint8)
+    t[rng.random(n) < 1 / 8] = rng.choice([4, CODE_SEP])
+    return t
+
+
+@pytest.mark.parametrize("n", SA_KEY_LENGTHS)
+def test_sa_keys_kernel_equals_plain(cuda, n):
+    """The window-key kernel == sa_keys_plain, one launch a call, on a
+    text at every byte offset 0..15 from a 16-byte boundary (the chunk
+    path where the thread's 64 bytes lie inside the text, bytewise near
+    both ends); a text of specials only and one without any."""
+    texts = [_key_text(n, 300 + n), np.full(n, 4, np.uint8),
+             random_genome(n, seed=301 + n)]
+    for t in texts:
+        text = torch.from_numpy(t).to(cuda)
+        want = index_build.sa_keys_plain(text)
+        for r in range(16):
+            view = _offset_view(text, r)
+            before = index_build.sa_keys.launches
+            got = index_build.sa_keys(view)
+            assert index_build.sa_keys.launches == before + 1
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int64 and torch.equal(got, want), r
+
+
+def test_sa_keys_zero_rows_launch_nothing(cuda):
+    before = index_build.sa_keys.launches
+    got = index_build.sa_keys(torch.empty(0, dtype=torch.uint8, device=cuda))
+    assert got.shape == (0,) and got.dtype == torch.int64
+    assert index_build.sa_keys.launches == before
+
+
+def _cut_pair(offset: int, code: int, seed: int) -> np.ndarray:
+    """One 27-character window twice, each copy with a special at
+    ``offset`` (tests/test_torch_index.py's texts, by the port's synth)."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, size=400).astype(np.uint8)
+    x = rng.integers(0, 4, size=offset).astype(np.uint8)
+    for at in (60, 250):
+        t[at:at + offset] = x
+        t[at + offset] = code
+    return t
+
+
+def _specials_text(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, size=700).astype(np.uint8)
+    t[rng.integers(0, 700, size=60)] = 4
+    t[rng.integers(0, 700, size=30)] = 5
+    return t
+
+
+def _planted(length: int, seed: int) -> np.ndarray:
+    t = random_genome(2000, seed=seed)
+    t[1500:1500 + length] = t[200:200 + length]
+    return t
+
+
+# tests/test_torch_index.py's TEXTS and SORT_TEXTS
+BUILD_TEXTS = {
+    "random": lambda: random_genome(3000, seed=11),
+    "specials": lambda: _specials_text(12),
+    "n_runs": lambda: with_n_runs(random_genome(2500, seed=13), 4, 60,
+                                  seed=14),
+    "repeats": lambda: with_repeats(random_genome(3000, seed=15), 6, 700,
+                                    seed=16),
+    "low_complexity": lambda: np.tile(np.array([0, 1, 0, 2], np.uint8), 300),
+    "single": lambda: np.array([2], np.uint8),
+    **{f"length{n}": (lambda n=n: random_genome(n, seed=70 + n))
+       for n in (1, 26, 27, 28, 29)},
+    **{f"special_at{o}": (lambda o=o: _cut_pair(o, 4, 80 + o))
+       for o in (0, 1, 26, 27)},
+    "specials_only": lambda: np.random.default_rng(91).integers(
+        4, 6, size=300).astype(np.uint8),
+    "all_a": lambda: np.zeros(500, np.uint8),
+    "repeat120": lambda: _planted(120, 92),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUILD_TEXTS))
+def test_build_index_on_cuda_equals_cpu(cuda, monkeypatch, name):
+    """A card build == the CPU build (SA, BWT, occ, C[]) in as many sorts,
+    with one window-key launch and never the plain keys."""
+    t = BUILD_TEXTS[name]()
+    before = index_build.suffix_array.sorts
+    want = build_index(t, device="cpu")
+    cpu_sorts = index_build.suffix_array.sorts - before
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain window keys ran on CUDA tensors")
+
+    monkeypatch.setattr(index_build, "sa_keys_plain", plain)
+    launches = index_build.sa_keys.launches
+    before = index_build.suffix_array.sorts
+    idx = build_index(t, device=cuda)
+    assert index_build.sa_keys.launches == launches + 1
+    assert index_build.suffix_array.sorts - before == cpu_sorts
+    for f in ("text", "sa", "bwt", "occ_ckpt", "counts"):
+        assert torch.equal(getattr(idx, f).cpu(), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("engine", ["seed", "scan"])

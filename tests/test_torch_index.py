@@ -1,4 +1,6 @@
-"""Port vs JAX package: FM-index build, LCP array, npz format, synth.
+"""Port vs JAX package: FM-index build, LCP array, npz format, synth; the
+suffix sort's window keys (``sa_keys_plain``) against a numpy model of
+``kernels/csrc/sakeys.cu``.
 
 Same inputs (numpy, from seeds) go through ``slamem_tpu`` and
 ``slamem_tpu_torch`` on the CPU. Tolerance: exact — every compared array is
@@ -17,7 +19,9 @@ from slamem_tpu.index.serialize import save_index as jax_save
 from slamem_tpu.io import FastaSet
 from slamem_tpu.utils import synth as jax_synth
 
-from slamem_tpu_torch.index.build import build_index
+from slamem_tpu_torch.index import build
+from slamem_tpu_torch.index.build import (SA_KEY_CHARS, build_index,
+                                          sa_keys_plain)
 from slamem_tpu_torch.index.lcp import lcp_adjacent
 from slamem_tpu_torch.index.serialize import (index_from_numpy, load_index,
                                               save_index)
@@ -140,3 +144,199 @@ def test_synth_same_arrays_as_jax():
         got = got if isinstance(got, tuple) else (got,)
         for a, b in zip(want, got, strict=True):
             assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The suffix sort: one sort of 27-character window keys, then doubling
+# ---------------------------------------------------------------------------
+
+
+def _cut_pair(offset, code, seed):
+    """A random text holding one 27-character window twice, each copy with
+    a special ``code`` at ``offset`` (27: just past the window)."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, size=400).astype(np.uint8)
+    x = rng.integers(0, 4, size=offset).astype(np.uint8)
+    for at in (60, 250):
+        t[at:at + offset] = x
+        t[at + offset] = code
+    return t
+
+
+def _planted(length, seed):
+    """A random text with one planted copy of a ``length``-character run."""
+    t = jax_synth.random_genome(2000, seed=seed)
+    t[1500:1500 + length] = t[200:200 + length]
+    return t
+
+
+SORT_TEXTS = {
+    **{f"length{n}": (lambda n=n: jax_synth.random_genome(n, seed=70 + n))
+       for n in (1, 26, 27, 28, 29)},
+    **{f"special_at{o}": (lambda o=o: _cut_pair(o, 4, 80 + o))
+       for o in (0, 1, 26, 27)},
+    "sep_at26": lambda: _cut_pair(26, 5, 90),
+    "specials_only": lambda: np.random.default_rng(91).integers(
+        4, 6, size=300).astype(np.uint8),
+    "all_a": lambda: np.zeros(500, np.uint8),
+    "repeat120": lambda: _planted(120, 92),
+    "random": lambda: jax_synth.random_genome(5000, seed=93),
+}
+
+
+def _expected_sorts(jidx):
+    """1, plus a doubling round for each time the longest prefix two
+    suffixes share (the JAX package's LCP, which never crosses a special)
+    reaches the characters the ranks tell apart: 27, then 54, 108, ..."""
+    longest = int(np.asarray(jax_lcp(jidx.text, jidx.sa)).max(initial=0))
+    sorts, span = 1, SA_KEY_CHARS
+    while longest >= span:
+        sorts, span = sorts + 1, 2 * span
+    return sorts
+
+
+@pytest.mark.parametrize("name", sorted(SORT_TEXTS))
+def test_window_key_sort_equal_jax(name):
+    """SA, BWT, occ checkpoints and C[] == the JAX package's, in as many
+    sorts as the longest shared prefix needs: one for a random text, at
+    least three past a planted repeat of 120 (> 54) characters."""
+    t = SORT_TEXTS[name]()
+    jidx = jax_build(t, occ_block=16)
+    before = build.suffix_array.sorts
+    tidx = build_index(t, occ_block=16, device="cpu")
+    sorts = build.suffix_array.sorts - before
+    _assert_same_index(jidx, tidx)
+    assert sorts == _expected_sorts(jidx)
+    if name == "random":
+        assert sorts == 1
+    if name == "repeat120":
+        assert sorts >= 3
+    if name in ("special_at26", "sep_at26"):
+        assert sorts == 1      # equal keys holding a special: new ranks
+    if name == "special_at27":
+        assert sorts == 2      # 27 equal characters: one doubling round
+
+
+_P5 = 5 ** np.arange(10, dtype=np.int64)
+
+
+def _words(b):
+    """(..., 4 w) uint8 -> (..., w) little-endian uint32 words."""
+    b = b.astype(np.uint32).reshape(*b.shape[:-1], -1, 4)
+    return np.bitwise_or.reduce(b << np.array([0, 8, 16, 24], np.uint32),
+                                axis=-1)
+
+
+def _sa_keys_model(text):
+    """csrc/sakeys.cu step for step in numpy: one thread per 16 positions
+    i0; its 11 span words from the aligned chunks at lo = i0 - (address of
+    text[i0]) % 16 where [lo, lo + 64) lies inside the text (only the
+    chunks the span touches read), else bytewise with N past the text;
+    per-byte digits and the special mask; rolling 9-digit groups; each
+    window's cut at its first special (``window_key``); the block's readout of shared memory rows
+    (row e / 8, slot e % 8 holds positions 2 e, 2 e + 1). Also returns how
+    many threads took the chunk path."""
+    n = text.size
+    i0 = np.arange(0, n, 16)
+    off = (text.ctypes.data + i0) & 15
+    lo = i0 - off
+    fast = (lo >= 0) & (lo + 64 <= n)
+    pos = np.where(fast, lo, 0)[:, None] + np.arange(64)
+    touched = (np.arange(64) // 16 * 16)[None, :] < (off + 44)[:, None]
+    assert (pos[fast[:, None] & touched] < n).all()    # no read past n
+    c = _words(np.where(touched, text[np.clip(pos, 0, n - 1)], 0))
+    s = np.take_along_axis(c, (off >> 2)[:, None] + np.arange(12), axis=1)
+    sh = (8 * (off & 3)).astype(np.uint64)[:, None]
+    pair = s[:, :11].astype(np.uint64) | (s[:, 1:].astype(np.uint64) << 32)
+    x_fast = ((pair >> sh) & 0xFFFFFFFF).astype(np.uint32)  # funnelshift
+    bpos = i0[:, None] + np.arange(44)
+    x_slow = _words(np.where(bpos < n, text[np.clip(bpos, 0, n - 1)], 4))
+    x = np.where(fast[:, None], x_fast, x_slow)              # (T, 11)
+    span = ((x[:, :, None] >> np.array([0, 8, 16, 24], np.uint32)) & 0xFF
+            ).reshape(len(i0), 44).astype(np.int64)
+    special = span >= 4
+    d = np.where(special, 0, span + 1)                       # __vadd4
+    mask = (special.astype(np.int64) << np.arange(44)).sum(1)
+    g = np.zeros((len(i0), 34), np.int64)
+    g[:, 0] = (d[:, :9] * _P5[8::-1]).sum(1)
+    for p in range(33):
+        g[:, p + 1] = (5 * g[:, p] - _P5[9] * d[:, p] + d[:, p + 9]) \
+            % (1 << 32)
+    keys = np.empty((len(i0), 16), np.int64)
+    for o in range(16):                                      # window_key
+        w = (mask >> o) & ((1 << SA_KEY_CHARS) - 1)
+        first = np.full(len(i0), SA_KEY_CHARS, np.int64)     # __ffs - 1
+        for b in range(SA_KEY_CHARS - 1, -1, -1):
+            first = np.where((w >> b) & 1, b, first)
+        h = [g[:, o].copy(), g[:, o + 9].copy(), g[:, o + 18].copy()]
+        k = np.where(first < 9, 0, np.where(first < 18, 1, 2))
+        r = 9 * (k + 1) - first
+        p = ((np.where(r & 1, 5, 1) * np.where(r & 2, 25, 1))
+             * np.where(r & 4, 625, 1) * np.where(r & 8, 390625, 1))
+        gk = np.choose(k, h)
+        cut = gk - gk % p
+        some = first < SA_KEY_CHARS
+        h = [np.where(some & (k == 0), cut, h[0]),
+             np.where(some & (k == 0), 0,
+                      np.where(some & (k == 1), cut, h[1])),
+             np.where(some, np.where(k == 2, cut, 0), h[2])]
+        keys[:, o] = h[0] * _P5[9] ** 2 + h[1] * _P5[9] + h[2]
+    e = np.arange(len(i0) * 8)             # pair e: positions 2 e, 2 e + 1
+    pairs = keys.reshape(-1, 8, 2)[e >> 3, e & 7]
+    return pairs.reshape(-1)[:n], int(fast.sum())
+
+
+def _at_offset(text, r):
+    """text copied into a larger array, as a view whose address is r
+    modulo 16."""
+    big = np.full(text.size + 48, 7, np.uint8)
+    a = -big.ctypes.data % 16 + r
+    big[a:a + text.size] = text
+    return big[a:a + text.size]
+
+
+def _key_texts(seed):
+    """Lengths 1..80 and around 16-byte, 64-byte and block (4,096) edges:
+    random codes with specials at one position in eight, one text of
+    specials only and one without."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in [*range(1, 81), 127, 128, 129, 4095, 4096, 4097, 5000]:
+        t = rng.integers(0, 4, size=n).astype(np.uint8)
+        t[rng.random(n) < 1 / 8] = rng.choice([4, 5])
+        out.append(t)
+    out.append(np.full(100, 4, np.uint8))
+    out.append(jax_synth.random_genome(300, seed=seed))
+    return out
+
+
+@pytest.mark.parametrize("r", range(16))
+def test_sa_keys_model_equal_plain(r):
+    """At base-address residue r, every window 0..33 bytes (and more) from
+    either end of each text: the kernel's model == sa_keys_plain, and both
+    the chunk and the bytewise path are taken."""
+    fast = 0
+    for t in _key_texts(100 + r):
+        view = _at_offset(t, r)
+        got, nf = _sa_keys_model(view)
+        fast += nf
+        want = sa_keys_plain(torch.from_numpy(t)).numpy()
+        assert np.array_equal(got, want), t.size
+    assert fast > 0
+
+
+def test_sa_keys_plain_by_definition():
+    """sa_keys_plain == the definition, position by position: base-5
+    digits 1..4 for A..T, 0 from the first N / SEP / past-the-text on."""
+    t = _specials(15)[:200]
+    got = sa_keys_plain(torch.from_numpy(t)).numpy()
+    for i in range(t.size):
+        key, live = 0, True
+        for j in range(SA_KEY_CHARS):
+            c = int(t[i + j]) if i + j < t.size else 4
+            live = live and c < 4
+            key = 5 * key + (c + 1 if live else 0)
+        assert got[i] == key, i
+    assert ((got % 5 == 0) == np.array(
+        [(t[i:i + SA_KEY_CHARS] >= 4).any() or i + SA_KEY_CHARS > t.size
+         for i in range(t.size)])).all()

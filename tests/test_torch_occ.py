@@ -123,12 +123,14 @@ def test_occ_checkpoints_checks_its_arguments(bad):
 
 
 def test_cpu_build_takes_the_plain_path(monkeypatch):
-    """A CPU build neither builds nor launches the kernel, and its
-    ``index_build`` span records 0 launches (a given index too)."""
+    """A CPU build neither builds nor launches the occ or the window-key
+    kernel, and its ``index_build`` span records 0 launches and its sorts
+    (1 for a random reference; a given index: 0 and 0)."""
     def no_kernel():
-        raise AssertionError("the occ kernel was loaded for CPU tensors")
+        raise AssertionError("a kernel was loaded for CPU tensors")
 
     monkeypatch.setattr(build, "load_occ", no_kernel)
+    monkeypatch.setattr(build, "load_sa_keys", no_kernel)
     before = occ_checkpoints.launches
     ref = with_n_runs(random_genome(3_000, seed=41), 2, 20, seed=42)
     mk = lambda c: FastaSet(names=["r"], starts=np.array([0]),  # noqa: E731
@@ -137,8 +139,10 @@ def test_cpu_build_takes_the_plain_path(monkeypatch):
                      device="cpu")
     rec = out.stats["phases"][0]
     assert rec["phase"] == "index_build" and rec["occ_launches"] == 0
+    assert rec["sa_sorts"] == 1
     idx = build_index(ref, device="cpu")
     out = run_engine(mk(ref), mk(ref[:300].copy()), Config(min_length=20),
                      index=idx, device="cpu")
-    assert out.stats["phases"][0]["occ_launches"] == 0
+    rec = out.stats["phases"][0]
+    assert rec["occ_launches"] == 0 and rec["sa_sorts"] == 0
     assert occ_checkpoints.launches == before
