@@ -180,6 +180,15 @@ Phases, each of which raises on failure (exit status non-zero):
          maximal;
      6b. ``-shard -slabs 8`` (the 8-slab program on the one card):
          listing bytes == 6a's;
+     6s. ``-engine scan`` (``-v``): listing bytes == 6a's, one scan
+         launch a 4M chunk; prints the scan_lcp, scan_rows and frontend
+         stages' device-synchronised seconds and fields, the peak device
+         memory and lcp_adjacent's rank rounds; then lcp_adjacent ==
+         benchmark/reference/lcp.py's lcp_plain over the 250,000,001 rows
+         and the first and last chunks' scan intervals == its
+         intervals_plain, exactly (also alone, on the benchmark's inputs
+         for a seed: ``python3 chip_smoke.py --scan-chr1 [--bench-seed
+         N]``);
      6c. phase 4's input through ``-shard -slabs 3 -b``, ``-b -mum`` and
          ``-b -mam``: GPU bytes == CPU bytes == the default call's bytes
          (5e), and ``-shard -b`` alone == the default call.
@@ -216,7 +225,7 @@ Phases, each of which raises on failure (exit status non-zero):
      32-byte sectors under its four windows).
 Phases run in the order 1, o, k, 2, 2w, u, 2s, 3, 3k, 3p, 4 with 5e, 4o, 4k, 7c,
 7d, 5a, 9a, 7a, 5b, 5d, t (5 Mbp), 5c, 3c, 7b, 8 (5c), 6c, 6a, 8 (6a), 6b,
-9b, t (config #5), e. Prints the card and its power limit (nvidia-smi), a
+6s, 9b, t (config #5), e. Prints the card and its power limit (nvidia-smi), a
 ``{"kernels": [...]}`` line (each kernel's launches on its path,
 exactness, time, plain time and lower bound; the standalone rank kernels'
 path is the scan kernel that runs their device function, the any-width
@@ -2209,6 +2218,214 @@ def _mesh_phase(label: str, fn, index, ref_set, qry_set, cfg, mesh,
     return st
 
 
+_SPAN_LINE = re.compile(r"^\[slamem\] (\w+): ([0-9.]+)s ?(.*)$", re.M)
+SCAN_STAGES = ("scan_lcp", "scan_rows", "frontend")
+
+
+def _span_records(stderr: str) -> dict[str, dict]:
+    """The ``-v`` span lines of a CLI run (``[slamem] <phase>: <s>s
+    key=value ...``), the last record of each phase by name."""
+    out = {}
+    for name, sec, rest in _SPAN_LINE.findall(stderr):
+        out[name] = {"seconds": float(sec),
+                     **dict(re.findall(r"(\w+)=(\S+)", rest))}
+    return out
+
+
+def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
+                     seed_listing: str, smi: str) -> dict:
+    """Phase 6s: ``-engine scan`` at config #5's size on the card. The CLI
+    with ``-v`` (stages device-synchronised): listing bytes == the default
+    engine's (``seed_listing``, the same files), one scan launch a chunk;
+    the three scan stages' seconds and fields, the LCP's rank rounds and
+    the job's peak device memory. Then, on the same reference's index, the
+    LCP array == ``benchmark/reference/lcp.py::lcp_plain`` and the first
+    and last chunks' intervals == its ``intervals_plain``, exactly."""
+    import hashlib
+
+    import torch
+
+    from benchmark.reference.lcp import intervals_plain, lcp_plain
+    from slamem_tpu_torch.config import Config
+    from slamem_tpu_torch.engine import scan_mode, seed_mode
+    from slamem_tpu_torch.index.build import build_index
+    from slamem_tpu_torch.index.lcp import lcp_adjacent
+    from slamem_tpu_torch.io.fasta import read_fasta
+
+    out = seed_listing + ".scan"
+    _reset_launches(rank, pack2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stderr = _cli(cli_main, ["-engine", "scan", "-l", str(CHR1_L), "-device",
+                             "cuda", "-v", "-o", out, rp, qp])
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    st = _verbose_stats(stderr)
+    spans = _span_records(stderr)
+    res.update(build_s=st["build_s"], query_s=st["query_s"],
+               plan=st["plan"], stage_s=st["stage_s"],
+               stages={k: spans[k] for k in SCAN_STAGES})
+    res["rank_rounds"] = int(spans["scan_lcp"]["rounds"])
+    chunks = int(spans["frontend"]["chunks"])
+    res["scan_launches"] = _scan_launches(rank, "nib", chunks, label)
+    got, want = Path(out).read_bytes(), Path(seed_listing).read_bytes()
+    res["sha256"] = hashlib.sha256(got).hexdigest()
+    res["seed_sha256"] = hashlib.sha256(want).hexdigest()
+    res["matches"] = len(_listing_matches(out))
+    _log(f"[scan {label}] -engine scan -l {CHR1_L}: {res['matches']} lines "
+         f"of matches, {len(got)} B, sha256 {res['sha256']}; index build "
+         f"{st['build_s']} s, query {st['query_s']} s; stages (synchronised"
+         f"): " + "; ".join(
+             f"{k} {spans[k]['seconds']:.6f} s "
+             + " ".join(f"{f}={v}" for f, v in spans[k].items()
+                        if f != "seconds") for k in SCAN_STAGES)
+         + f"; plan {st['plan']}; stage s {st['stage_s']}; CLI wall "
+         f"{res['wall_s']:.3f} s; "
+         f"peak device memory {res['peak_bytes']} B "
+         f"({res['peak_bytes'] / 2**30:.3f} GiB); lcp_adjacent's rank "
+         f"rounds {res['rank_rounds']}; {chunks} scan launches; {smi}")
+    if got != want:
+        raise AssertionError(f"{label}: the scan listing != the default "
+                             "engine's")
+    _log(f"[scan {label}] listing == the default engine's (sha256 "
+         f"{res['seed_sha256']})")
+    os.remove(out)
+
+    # the mechanism against the plain reference on the same index
+    rtext = read_fasta(rp).with_separators()[0]
+    qcodes = read_fasta(qp).sequence(0).codes
+    index = build_index(rtext, Config.occ_block, "cuda")
+    del rtext
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lcp = lcp_adjacent(index.text, index.sa)
+    torch.cuda.synchronize()
+    res["lcp_adjacent_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = lcp_plain(index.text, index.sa)
+    torch.cuda.synchronize()
+    res["lcp_plain_s"] = time.perf_counter() - t0
+    if not torch.equal(lcp, plain):
+        bad = int((lcp != plain).sum())
+        raise AssertionError(f"{label}: lcp_adjacent != lcp_plain at {bad} "
+                             f"of {index.n} rows")
+    res["lcp_max"] = int(plain.max())
+    del lcp, plain
+    _log(f"[scan {label}] lcp_adjacent == lcp_plain over {index.n} rows "
+         f"(max {res['lcp_max']}); {res['lcp_adjacent_s']:.6f} s against "
+         f"{res['lcp_plain_s']:.6f} s")
+    qt = seed_mode.query_to_device(qcodes, "cuda")[1]
+    m, C = int(qt.numel()), scan_mode._SCAN_CHUNK
+    res["chunks_checked"] = {}
+    for a in sorted({0, (m - 1) // C * C}):
+        piece = qt[a:a + C + CHR1_L]
+        take = min(C, m - a)
+        lo, w = (x[:take] for x in scan_mode.scan_intervals(
+            index, piece, CHR1_L))
+        t0 = time.perf_counter()
+        plo, pw = (x[:take] for x in intervals_plain(
+            index.text, index.sa, piece, CHR1_L))
+        torch.cuda.synchronize()
+        hit = pw > 0
+        if not (torch.equal(w, pw) and torch.equal(lo[hit], plo[hit])):
+            raise AssertionError(f"{label}: chunk at {a}: scan intervals != "
+                                 "intervals_plain")
+        res["chunks_checked"][a] = {"positions": take,
+                                    "hits": int(hit.sum()),
+                                    "pairs": int(pw.sum()),
+                                    "plain_s": time.perf_counter() - t0}
+    _log(f"[scan {label}] scan intervals == intervals_plain on chunks "
+         f"{res['chunks_checked']}")
+    del index, qt
+    torch.cuda.empty_cache()
+    return res
+
+
+def scan_chr1_main(argv: list[str]) -> int:
+    """``python3 chip_smoke.py --scan-chr1 [--bench-seed N]``: phase 6a's
+    default call and phase 6s alone, on phase 6's inputs or, with
+    ``--bench-seed``, on the benchmark's ``chr1-pair`` inputs for that seed
+    (the files and listing of cells ``chr1-pair.job`` and
+    ``chr1-pair.scan-job`` at that seed)."""
+    import argparse
+    import hashlib
+
+    import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --scan-chr1")
+    ap.add_argument("--scan-chr1", action="store_true")
+    ap.add_argument("--bench-seed", type=int, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA card", file=sys.stderr)
+        return 1
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here))
+    from slamem_tpu_torch.cli.main import main as cli_main
+    from slamem_tpu_torch.io.fasta import Sequence, write_fasta
+    from slamem_tpu_torch.kernels import (buckets, extend, occ, rank,
+                                          sakeys, seedkeys, unpack2)
+    from slamem_tpu_torch.utils import pack2, synth
+
+    # every kernel the two calls launch, built first, so that no stage
+    # below holds an nvcc run
+    with ThreadPoolExecutor(7) as pool:
+        for f in [pool.submit(m.load_kernel) for m in (
+                rank, unpack2, extend, seedkeys, buckets, occ, sakeys)]:
+            f.result()
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _log(f"[device] {torch.cuda.get_device_name(0)}; torch "
+         f"{torch.__version__} cuda {torch.version.cuda}; {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rp, qp = os.path.join(tmp, "ref.fa"), os.path.join(tmp, "qry.fa")
+        seed_out = os.path.join(tmp, "seed.txt")
+        t0 = time.perf_counter()
+        if args.bench_seed is None:
+            ref, qry = synth.strain_pair(CHR1["n"], seed=CHR1["seed"],
+                                         sub_rate=CHR1["sub_rate"],
+                                         indel_rate=CHR1["indel_rate"])
+            write_fasta(rp, [Sequence("ref", ref)])
+            write_fasta(qp, [Sequence("qry", qry[:CHR1_QUERY_BP])])
+            del ref, qry
+        else:
+            from benchmark.harness.fasta import write_fasta as bench_fasta
+            from benchmark.harness.manifest import load_cell
+            from benchmark.inputs.build import make_inputs
+
+            config = load_cell("chr1-pair.job").config
+            inp = make_inputs(config, args.bench_seed, torch.device("cuda"))
+            bench_fasta(rp, inp.ref_names, inp.refs)
+            bench_fasta(qp, inp.query_names, inp.queries)
+            del inp
+        _log(f"[chr1] inputs made and written in "
+             f"{time.perf_counter() - t0:.3f} s (bench seed "
+             f"{args.bench_seed})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stderr = _cli(cli_main, ["-l", str(CHR1_L), "-device", "cuda", "-v",
+                                 "-o", seed_out, rp, qp])
+        torch.cuda.synchronize()
+        st = _verbose_stats(stderr)
+        listing = Path(seed_out).read_bytes()
+        _log(f"[seed 6a] default call: {len(listing)} B, sha256 "
+             f"{hashlib.sha256(listing).hexdigest()}; index build "
+             f"{st['build_s']} s, query {st['query_s']} s, stage s "
+             f"{st['stage_s']}; CLI wall {time.perf_counter() - t0:.3f} s;"
+             f" peak device memory {torch.cuda.max_memory_allocated()} B")
+        res = _scan_chr1_phase(cli_main, rank, pack2, "6s", rp, qp,
+                               seed_out, smi)
+    print(json.dumps({"scan_chr1": res, "bench_seed": args.bench_seed},
+                     sort_keys=True, default=str), flush=True)
+    return 0
+
+
 def _free_port() -> int:
     import socket
 
@@ -2731,7 +2948,11 @@ def run() -> int:
         if Path(shard_out).read_bytes() != Path(seed_out).read_bytes():
             raise AssertionError("6b: -shard -slabs listing != 6a's")
         _log(f"[chr1 6b] {CHR1_SLABS}-slab listing == replicated listing")
-        _log("[chr1] " + json.dumps(chr1, sort_keys=True))
+        # 6s. the scan engine at config #5's size, held to 6a's listing
+        # and to the plain reference of its LCP array and intervals
+        chr1["6s"] = _scan_chr1_phase(cli_main, rank, pack2, "6s", rp, qp,
+                                      seed_out, smi)
+        _log("[chr1] " + json.dumps(chr1, sort_keys=True, default=str))
 
         # 9b. config #5 through the replicated engine on the one-rank
         # mesh and the sharded mesh branch over the NCCL group
@@ -2946,4 +3167,5 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(run())
+    raise SystemExit(scan_chr1_main(sys.argv[1:]) if "--scan-chr1" in
+                     sys.argv else run())

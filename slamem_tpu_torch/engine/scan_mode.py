@@ -55,13 +55,25 @@ from slamem_tpu_torch.utils.log import engine_stages, span
 _SCAN_CHUNK = 1 << 22
 
 
-def get_pyramid(index: FMIndex) -> LcpPyramid:
-    """LCP pyramid of an index, built once per index."""
+def get_pyramid(index: FMIndex, stats: dict | None = None) -> LcpPyramid:
+    """LCP pyramid of an index, built once per index; a build fills
+    ``stats`` as ``lcp_adjacent`` does."""
     pyr = index.derived.get("lcp_pyramid")
     if pyr is None:
         pyr = index.derived["lcp_pyramid"] = LcpPyramid.build(
-            lcp_adjacent(index.text, index.sa))
+            lcp_adjacent(index.text, index.sa, stats))
     return pyr
+
+
+# the occ table the scan reads for a Config.rank_kernel value: its
+# FMIndex.derived key, the function that builds it and the count over it
+# (_occ_fn's resolution: "xla" reads the occ checkpoints, no table; a
+# value not named here the nibble table)
+_SCAN_TABLES = {"pallas": ("rank_rows", interleaved_rows, rank_rows),
+                "pallas_interpret": ("rank_rows", interleaved_rows,
+                                     rank_rows_plain),
+                "xla": None}
+_NIB_TABLE = ("rank_rows_nib", nibble_rows, rank_rows_nib)
 
 
 def _occ_fn(index: FMIndex, rank_kernel: str):
@@ -70,17 +82,12 @@ def _occ_fn(index: FMIndex, rank_kernel: str):
     and K0, "pallas_interpret" = K0's plain version, "xla" = rank_batch over
     the occ checkpoints, and every other value ("auto", "nib", or one the
     package does not name) = the nibble table and its kernel."""
-    if rank_kernel == "pallas":
-        rows = interleaved_rows(index)
-        return lambda chars, positions: rank_rows(rows, chars, positions)
-    if rank_kernel == "pallas_interpret":
-        rows = interleaved_rows(index)
-        return lambda chars, positions: rank_rows_plain(rows, chars,
-                                                        positions)
-    if rank_kernel == "xla":
+    table = _SCAN_TABLES.get(rank_kernel, _NIB_TABLE)
+    if table is None:
         return lambda chars, positions: rank_batch(index, chars, positions)
-    rows = nibble_rows(index)
-    return lambda chars, positions: rank_rows_nib(rows, chars, positions)
+    _, build, count = table
+    rows = build(index)
+    return lambda chars, positions: count(rows, chars, positions)
 
 
 def _backward(index: FMIndex, occ_fn, c: torch.Tensor, lo: torch.Tensor,
@@ -221,8 +228,7 @@ def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
     qt = query_text.to(device=index.device, dtype=torch.uint8).contiguous()
     layout = _KERNEL_LAYOUT.get(rank_kernel, "nib")
     if layout is not None and index.device.type == "cuda":
-        rows = nibble_rows(index) if layout == "nib" else \
-            interleaved_rows(index)
+        rows = _SCAN_TABLES.get(rank_kernel, _NIB_TABLE)[1](index)
         return scan_lanes(rows, layout, index.counts, get_pyramid(index), qt,
                           L, lane_block)
     return _scan_lanes(index, get_pyramid(index),
@@ -232,14 +238,28 @@ def scan_intervals(index: FMIndex, query_text: np.ndarray | torch.Tensor,
 def find_scan_matches(index: FMIndex, query_text: np.ndarray, cfg: Config,
                       mesh=None) -> seed_mode.SeedMatches:
     """Scan frontend + shared pair/run backend (see seed_mode); ``mesh``
-    goes on to the backend, as in the JAX package. Stages ``upload`` and
-    ``frontend`` (the scan), then the backend's."""
+    goes on to the backend, as in the JAX package. Stages ``upload``;
+    where the index has not cached them, ``scan_lcp`` (the LCP array and
+    its pyramid: ``n``, ``rounds`` and ``bytes`` of the rank arrays kept)
+    and ``scan_rows`` (the occ table of ``cfg.rank_kernel``: ``rows``,
+    ``bytes``); ``frontend`` (the scan: ``chunks``, ``launches`` of the
+    scan kernel); then the backend's."""
     L = cfg.min_length
     with engine_stages(index.device, cfg.verbose) as stage_s:
         with span("upload"):
             # N-padding: no spurious intervals
             qp, qt = seed_mode.query_to_device(query_text, index.device)
-        with span("frontend"):
+        if "lcp_pyramid" not in index.derived:
+            with span("scan_lcp", n=index.n) as rec:
+                get_pyramid(index, rec)
+        table = _SCAN_TABLES.get(cfg.rank_kernel, _NIB_TABLE)
+        if table is not None and table[0] not in index.derived:
+            with span("scan_rows") as rec:
+                rows = table[1](index)
+                rec.update(rows=int(rows.shape[0]),
+                           bytes=rows.numel() * rows.element_size())
+        with span("frontend") as rec:
+            launched = sum(scan_lanes.launches.values())
             m = int(qp.shape[0])
             C = _SCAN_CHUNK
             los, ws = [], []
@@ -251,6 +271,8 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray, cfg: Config,
                 ws.append(w_c[:take])
             lo = torch.cat(los)
             width = torch.cat(ws)
+            rec.update(chunks=len(los), launches=sum(
+                scan_lanes.launches.values()) - launched)
         # FM hits never touch specials: the plain SA is the all-valid view
         matches = seed_mode.pairs_to_matches(index, lo, width, L, m, cfg,
                                              index.sa, qt=qt, mesh=mesh)

@@ -33,12 +33,22 @@ def _descend(a: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
     return torch.where(eq, h + step, h)
 
 
-def lcp_adjacent(text: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
-    """LCP[j] = lcp(suffix sa[j-1], suffix sa[j]); LCP[0] = 0. int32 (n,)."""
+def lcp_adjacent(text: torch.Tensor, sa: torch.Tensor,
+                 stats: dict | None = None) -> torch.Tensor:
+    """LCP[j] = lcp(suffix sa[j-1], suffix sa[j]); LCP[0] = 0. int32 (n,).
+
+    ``stats``, where given, receives ``rounds`` (the rank arrays kept) and
+    ``bytes`` (what they held), read from their shapes alone.
+    """
     n = int(sa.shape[0])
     if n <= 1:
+        if stats is not None:
+            stats.update(rounds=0, bytes=0)
         return torch.zeros(n, dtype=torch.int32, device=sa.device)
     rounds = _rank_rounds(text)
+    if stats is not None:
+        stats.update(rounds=len(rounds), bytes=sum(
+            r.numel() * r.element_size() for r in rounds))
     a = sa[:-1].to(torch.int64)
     b = sa[1:].to(torch.int64)
     h = torch.zeros(n - 1, dtype=torch.int64, device=sa.device)

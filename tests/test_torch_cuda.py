@@ -649,6 +649,42 @@ def test_scan_slice_cuda_equals_cpu(cuda):
     assert got.length.size > 0
 
 
+@pytest.fixture(scope="module")
+def big_scan_index():
+    """An index on the card over 2^24 codes with N runs, a separator and
+    planted repeats, and a diverged 2^20-code query of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ref = with_n_runs(with_repeats(random_genome(1 << 24, seed=160), 40,
+                                   2_000, seed=161), 8, 500, seed=162)
+    ref[1 << 23] = CODE_SEP
+    qry = mutate(ref[:1 << 20], 0.02, 0.002, seed=163)
+    return build_index(ref, device="cuda"), qry
+
+
+def test_lcp_adjacent_equals_lcp_plain_on_card(big_scan_index):
+    from benchmark.reference.lcp import lcp_plain
+    from slamem_tpu_torch.index.lcp import lcp_adjacent
+
+    index, _ = big_scan_index
+    got = lcp_adjacent(index.text, index.sa)
+    want = lcp_plain(index.text, index.sa)
+    assert torch.equal(got, want) and int(want.max()) >= 2_000
+
+
+@pytest.mark.parametrize("L", [20, 50])
+def test_scan_intervals_equal_intervals_plain_on_card(big_scan_index, L):
+    from benchmark.reference.lcp import intervals_plain
+
+    index, qry = big_scan_index
+    qt = torch.from_numpy(qry).to(index.device)
+    lo, w = scan_mode.scan_intervals(index, qt, L)
+    plo, pw = intervals_plain(index.text, index.sa, qt, L)
+    hit = pw > 0
+    assert torch.equal(w, pw) and torch.equal(lo[hit], plo[hit])
+    assert int((pw > 1).sum()) > 0
+
+
 @pytest.mark.parametrize("fields", [dict(min_length=20),
                                     dict(min_length=50),
                                     dict(min_length=20, frontend="join"),

@@ -26,6 +26,7 @@ import functools
 import json
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +42,7 @@ from slamem_tpu_torch.engine import scan_mode, seed_mode
 from slamem_tpu_torch.engine.run import run_engine
 from slamem_tpu_torch.index.build import build_index
 from slamem_tpu_torch.io.fasta import FastaSet, Sequence, write_fasta
+from slamem_tpu_torch.kernels.rank import nibble_rows
 from slamem_tpu_torch.utils import device
 from slamem_tpu_torch.utils.log import PhaseLog
 from slamem_tpu_torch.utils.synth import mutate, random_genome, with_n_runs
@@ -254,8 +256,12 @@ ENGINES = {
     "mesh1": (_mesh1, dict(min_length=14),
               (*_REPLICATED, "gather", "extend")),
     "scan": (scan_mode.find_scan_matches, dict(min_length=14, engine="scan"),
-             ("upload", "frontend", "expand", "merge")),
+             ("upload", "scan_lcp", "scan_rows", "frontend", "expand",
+              "merge")),
 }
+# stages a call records only on an index that has not cached what they
+# build: the scan engine's LCP array and occ table
+COLD_STAGES = {"scan": ("scan_lcp", "scan_rows")}
 
 
 @pytest.mark.parametrize("case", sorted(ENGINES))
@@ -281,7 +287,12 @@ def test_stage_s_sums_the_calls_abutting_stage_records(pair, small_tables,
     assert st == {n: sum(r["seconds"] for r in recs if r["phase"] == n)
                   for n in names}
     assert (m.stats["rounds"] > 1) == (case == "rounds")
-    assert set(fn(index, qry, cfg).stats["stage_s"]) == set(names)
+    cold = COLD_STAGES.get(case, ())
+    if cold:
+        assert [r["phase"] for r in recs[:4]] == ["upload", *cold,
+                                                  "frontend"]
+    assert set(fn(index, qry, cfg).stats["stage_s"]) == set(names) - set(
+        cold)
 
 
 # The replicated engine's host reads on the CPU before its stages were
@@ -317,6 +328,48 @@ def test_replicated_stages_add_no_sync_and_no_host_read(pair, monkeypatch,
         capacity]
     assert seen.count("synchronize") == (len(log.records) if verbose else 0)
     assert [r["phase"] for r in log.records] == [*_REPLICATED, "extend"]
+
+
+@pytest.mark.parametrize("verbose", [False, True])
+def test_scan_stages_add_no_sync_and_no_host_read(pair, monkeypatch,
+                                                  verbose):
+    """A cold scan call reads from the device what building the LCP
+    pyramid and the nibble table outside any stage reads plus what a warm
+    call reads; with the log off it makes no synchronise, and under
+    ``cfg.verbose`` each stage record waits for the device once. A warm
+    call records neither cold stage."""
+    ref, qry = pair
+    cfg = Config(min_length=14, engine="scan", verbose=verbose)
+    text = _set("R", ref).with_separators()[0]
+    cold, warm = (build_index(text, cfg.occ_block, "cpu") for _ in range(2))
+    with PhaseLog(enabled=False).activate() as log, \
+            monkeypatch.context() as mp:
+        seen = _host_touches(mp)
+        m = scan_mode.find_scan_matches(cold, qry, cfg)
+    with monkeypatch.context() as mp:
+        tables = _host_touches(mp)
+        scan_mode.get_pyramid(warm)
+        nibble_rows(warm)
+    with PhaseLog(enabled=False).activate() as warm_log, \
+            monkeypatch.context() as mp:
+        again = _host_touches(mp)
+        m2 = scan_mode.find_scan_matches(warm, qry, cfg)
+    assert [r["phase"] for r in log.records][:4] == [
+        "upload", "scan_lcp", "scan_rows", "frontend"]
+    assert not {"scan_lcp", "scan_rows"} & {
+        r["phase"] for r in warm_log.records}
+    reads = [x for x in seen if x != "synchronize"]
+    assert Counter(reads) == Counter(tables) + Counter(
+        x for x in again if x != "synchronize")
+    assert seen.count("synchronize") == (len(log.records) if verbose else 0)
+    assert again.count("synchronize") == (len(warm_log.records) if verbose
+                                          else 0)
+    assert _listed_matches(m) == _listed_matches(m2) and m.refpos.size > 0
+
+
+def _listed_matches(m) -> list[tuple[int, int, int]]:
+    return sorted(zip(m.refpos.tolist(), m.qpos.tolist(),
+                      m.length.tolist()))
 
 
 def test_reference_and_slab_program_load_no_jax(tmp_path):
