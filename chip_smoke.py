@@ -9,9 +9,10 @@ Phases, each of which raises on failure (exit status non-zero):
      the unpack kernel of the packed upload wire (csrc/unpack2.cu), the
      endpoint-extension kernel of the seed engine (csrc/extend.cu), the key
      kernels of the seed tables (csrc/seedkeys.cu: the seed table's rows
-     and the query's key pack), the bucket-start kernel (csrc/buckets.cu)
-     and the index build's occ checkpoint and window-key kernels
-     (csrc/occ.cu, csrc/sakeys.cu);
+     and the query's key pack), the bucket-start kernel (csrc/buckets.cu),
+     the index build's occ checkpoint and window-key kernels
+     (csrc/occ.cu, csrc/sakeys.cu) and the scan engine's LCP kernel
+     (csrc/lcp.cu);
   o. the occ checkpoint kernel (index/build.py occ_checkpoints) on a BWT
      of chr1's 250,000,001 symbols at occ_block 128 == its plain version,
      aligned and 1 byte past a 16-byte boundary (the byte path), timed
@@ -116,8 +117,9 @@ Phases, each of which raises on failure (exit status non-zero):
      3c. the same 40 Mbp pair through ``-engine scan -l 50 -device cuda``
          (10 chunks; its LCP array, 160 MB, is larger than L2): 286,645,
          listing bytes == 5c's; then the scan frontend's split, cold on a
-         fresh index: the LCP array, its pyramid, the nibble table and
-         the 10 scan launches, each timed apart;
+         fresh index: the LCP array (with its long pairs and launches),
+         its pyramid, the nibble table and the 10 scan launches, each
+         timed apart;
      5d. the headline reference against 10 strains
          ``mutate(ref, 0.01 + 0.001 j, 0.001, seed=100 + j)`` as one
          multi-FASTA query at ``-l 30``: 478,358;
@@ -181,14 +183,20 @@ Phases, each of which raises on failure (exit status non-zero):
      6b. ``-shard -slabs 8`` (the 8-slab program on the one card):
          listing bytes == 6a's;
      6s. ``-engine scan`` (``-v``): listing bytes == 6a's, one scan
-         launch a 4M chunk; prints the scan_lcp, scan_rows and frontend
-         stages' device-synchronised seconds and fields, the peak device
-         memory and lcp_adjacent's rank rounds; then lcp_adjacent ==
+         launch a 4M chunk, the LCP kernel's launches == its span's;
+         prints the scan_lcp, scan_rows and frontend stages'
+         device-synchronised seconds and fields (scan_lcp's long pairs
+         and launches) and the peak device memory; then lcp_adjacent ==
          benchmark/reference/lcp.py's lcp_plain over the 250,000,001 rows
          and the first and last chunks' scan intervals == its
-         intervals_plain, exactly (also alone, on the benchmark's inputs
-         for a seed: ``python3 chip_smoke.py --scan-chr1 [--bench-seed
-         N]``);
+         intervals_plain, exactly; the LCP kernel's time by CUDA events
+         (both passes, raw launches), the wrapper's and the plain
+         version's (lcp_adjacent_plain), beside its byte bound (the text,
+         sa and lcp each once) and its sector bound (sa and lcp, and the
+         32-byte sectors under each suffix's first 32 characters and
+         under the long pairs' further characters) (also alone, on the
+         benchmark's inputs for a seed: ``python3 chip_smoke.py
+         --scan-chr1 [--bench-seed N]``);
      6c. phase 4's input through ``-shard -slabs 3 -b``, ``-b -mum`` and
          ``-b -mam``: GPU bytes == CPU bytes == the default call's bytes
          (5e), and ``-shard -b`` alone == the default call.
@@ -232,7 +240,8 @@ path is the scan kernel that runs their device function, the any-width
 nibble kernel's is 2w's rank_nib calls; the unpack,
 extension, table, occ and window-key kernels' launches are 5a's, their
 times phase u's at the query shape, phase e's at 6a's runs, phase t's at
-6a's shapes and phases o's and k's at chr1's size),
+6a's shapes and phases o's and k's at chr1's size; the LCP kernel's
+launches and time are 6s's),
 and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -873,9 +882,9 @@ def _scan_frontend_split(rank, scan_mode, seed_mode, index, qry,
                          L: int) -> dict:
     """Phase 3c's scan frontend in parts, cold on a fresh index as in a
     CLI call (host clock, each part ending in a synchronise): the LCP
-    array (``lcp_adjacent``), its pyramid (``LcpPyramid.build``), the
-    nibble table, and the scan launches over the query's chunks (also by
-    CUDA events)."""
+    array (``lcp_adjacent``, with its long pairs and launches), its
+    pyramid (``LcpPyramid.build``), the nibble table, and the scan
+    launches over the query's chunks (also by CUDA events)."""
     import torch
 
     from slamem_tpu_torch.index.lcp import lcp_adjacent
@@ -884,11 +893,14 @@ def _scan_frontend_split(rank, scan_mode, seed_mode, index, qry,
     qt = seed_mode.query_to_device(qry, "cuda")[1]
     chunk = scan_mode._SCAN_CHUNK
     res = {}
+    stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lcp = lcp_adjacent(index.text, index.sa)
+    lcp = lcp_adjacent(index.text, index.sa, stats)
     torch.cuda.synchronize()
     res["lcp_adjacent_s"] = time.perf_counter() - t0
+    res["long_pairs"], res["lcp_launches"] = (stats["long_pairs"],
+                                              stats["launches"])
     t0 = time.perf_counter()
     index.derived["lcp_pyramid"] = LcpPyramid.build(lcp)
     torch.cuda.synchronize()
@@ -911,7 +923,8 @@ def _scan_frontend_split(rank, scan_mode, seed_mode, index, qry,
     res["scan_event_ms"] = start.elapsed_time(end)
     res["scan_launches"] = rank.scan_lanes.launches["nib"] - before
     _log(f"[scan 3c] frontend split (cold, fresh index): lcp_adjacent "
-         f"{res['lcp_adjacent_s']:.6f} s, LcpPyramid.build "
+         f"{res['lcp_adjacent_s']:.6f} s ({res['long_pairs']} long pairs, "
+         f"{res['lcp_launches']} launches), LcpPyramid.build "
          f"{res['pyramid_build_s']:.6f} s, nibble table "
          f"{res['nibble_table_s']:.6f} s, {res['scan_launches']} scan "
          f"launches {res['scan_s']:.6f} s ({res['scan_event_ms']:.6f} ms by "
@@ -2232,15 +2245,99 @@ def _span_records(stderr: str) -> dict[str, dict]:
     return out
 
 
+def _lcp_sectors(text, sa, lcp) -> int:
+    """32-byte sectors of the text that the LCP kernel's design reads at
+    least: those under each suffix's first LCP_WINDOW characters (each
+    suffix once, its window cut at the text's end) and, for each long
+    pair, those under both suffixes' characters from LCP_WINDOW to the
+    one that ends the prefix (cut at the text's end), at the text's real
+    address."""
+    import torch
+
+    from slamem_tpu_torch.index.lcp import LCP_WINDOW
+
+    n = text.numel()
+    base = text.data_ptr()
+
+    def spans(start, stop):
+        """Sectors under [start, stop) of the text, 0 where empty."""
+        first, last = (base + start) >> 5, (base + stop - 1) >> 5
+        return int(torch.where(stop > start, last - first + 1, 0).sum())
+
+    sectors = 0
+    for a in range(0, n, 1 << 26):
+        pos = torch.arange(a, min(n, a + (1 << 26)), device=text.device)
+        sectors += spans(pos, (pos + LCP_WINDOW).clamp(max=n))
+    rows = (lcp >= LCP_WINDOW).nonzero()[:, 0]
+    h = lcp[rows].to(torch.int64)
+    for side in (sa[rows - 1].to(torch.int64), sa[rows].to(torch.int64)):
+        sectors += spans(side + LCP_WINDOW, (side + h + 1).clamp(max=n))
+    return sectors
+
+
+def _lcp_kernel_times(index, lcp, long_pairs: int) -> dict:
+    """The LCP kernel at this index's shape, by CUDA events: the raw
+    launches (pass 1 alone; both passes, the list's length known) into
+    buffers of their own, checked == ``lcp``, the wrapper (with its one
+    scalar read) and the plain version (``lcp_adjacent_plain``); its byte
+    bound (the text, sa and lcp each once: 9 n) and its sector bound (sa
+    and lcp, and ``_lcp_sectors``)."""
+    import torch
+
+    from slamem_tpu_torch.index.lcp import lcp_adjacent, lcp_adjacent_plain
+    from slamem_tpu_torch.kernels.lcp import load_kernel
+
+    text, sa = index.text, index.sa
+    n = sa.numel()
+    kernel = load_kernel()
+    out, longs = torch.empty_like(lcp), torch.empty_like(lcp)
+    count = torch.zeros(1, dtype=torch.int32, device=lcp.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def first():
+        count.zero_()
+        if kernel.first(text.data_ptr(), text.numel(), sa.data_ptr(), n,
+                        out.data_ptr(), longs.data_ptr(), count.data_ptr(),
+                        stream):
+            raise RuntimeError("LCP kernel launch failed")
+
+    def both():
+        first()
+        if long_pairs and kernel.long(text.data_ptr(), text.numel(),
+                                      sa.data_ptr(), out.data_ptr(),
+                                      longs.data_ptr(), long_pairs, stream):
+            raise RuntimeError("LCP kernel's second launch failed")
+
+    first_ms = _cuda_ms(first, 20)
+    ms = _cuda_ms(both, 20)
+    torch.cuda.synchronize()
+    err = _exact("6s LCP kernel, raw launches", (out,), (lcp,))
+    wrapper_ms = _cuda_ms(lambda: lcp_adjacent(text, sa), 10)
+    plain_ms = _cuda_ms(lambda: lcp_adjacent_plain(text, sa), 1)
+    sectors = _lcp_sectors(text, sa, lcp)
+    res = {"rows": n, "long_pairs": long_pairs, "ms": ms,
+           "first_pass_ms": first_ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "sectors": sectors,
+           "sector_bound_bytes": 8 * n + 32 * sectors,
+           "sector_bound_ms": (8 * n + 32 * sectors) / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": err, **_bound(9 * n, 0)}
+    res["bound_share_pct"] = 100.0 * res["bound_ms"] / ms
+    res["sector_share_pct"] = 100.0 * res["sector_bound_ms"] / ms
+    del out, longs
+    return res
+
+
 def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
                      seed_listing: str, smi: str) -> dict:
     """Phase 6s: ``-engine scan`` at config #5's size on the card. The CLI
     with ``-v`` (stages device-synchronised): listing bytes == the default
-    engine's (``seed_listing``, the same files), one scan launch a chunk;
-    the three scan stages' seconds and fields, the LCP's rank rounds and
-    the job's peak device memory. Then, on the same reference's index, the
-    LCP array == ``benchmark/reference/lcp.py::lcp_plain`` and the first
-    and last chunks' intervals == its ``intervals_plain``, exactly."""
+    engine's (``seed_listing``, the same files), one scan launch a chunk,
+    the LCP kernel's launches == its span's; the three scan stages'
+    seconds and fields and the job's peak device memory. Then, on the same
+    reference's index, the LCP array == ``benchmark/reference/lcp.py::
+    lcp_plain``, the LCP kernel's times and bounds
+    (``_lcp_kernel_times``), and the first and last chunks' intervals ==
+    its ``intervals_plain``, exactly."""
     import hashlib
 
     import torch
@@ -2254,6 +2351,7 @@ def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
 
     out = seed_listing + ".scan"
     _reset_launches(rank, pack2)
+    lcp_adjacent.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2267,7 +2365,14 @@ def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
     res.update(build_s=st["build_s"], query_s=st["query_s"],
                plan=st["plan"], stage_s=st["stage_s"],
                stages={k: spans[k] for k in SCAN_STAGES})
-    res["rank_rounds"] = int(spans["scan_lcp"]["rounds"])
+    res["long_pairs"] = int(spans["scan_lcp"]["long_pairs"])
+    res["lcp_launches"] = int(spans["scan_lcp"]["launches"])
+    if not lcp_adjacent.launches == res["lcp_launches"] == 1 + (
+            res["long_pairs"] > 0):
+        raise AssertionError(f"{label}: LCP kernel launches "
+                             f"{lcp_adjacent.launches}, span "
+                             f"{res['lcp_launches']}, long pairs "
+                             f"{res['long_pairs']}")
     chunks = int(spans["frontend"]["chunks"])
     res["scan_launches"] = _scan_launches(rank, "nib", chunks, label)
     got, want = Path(out).read_bytes(), Path(seed_listing).read_bytes()
@@ -2284,8 +2389,9 @@ def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
          + f"; plan {st['plan']}; stage s {st['stage_s']}; CLI wall "
          f"{res['wall_s']:.3f} s; "
          f"peak device memory {res['peak_bytes']} B "
-         f"({res['peak_bytes'] / 2**30:.3f} GiB); lcp_adjacent's rank "
-         f"rounds {res['rank_rounds']}; {chunks} scan launches; {smi}")
+         f"({res['peak_bytes'] / 2**30:.3f} GiB); lcp_adjacent: "
+         f"{res['long_pairs']} long pairs, {res['lcp_launches']} launches; "
+         f"{chunks} scan launches; {smi}")
     if got != want:
         raise AssertionError(f"{label}: the scan listing != the default "
                              "engine's")
@@ -2298,9 +2404,10 @@ def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
     qcodes = read_fasta(qp).sequence(0).codes
     index = build_index(rtext, Config.occ_block, "cuda")
     del rtext
+    stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lcp = lcp_adjacent(index.text, index.sa)
+    lcp = lcp_adjacent(index.text, index.sa, stats)
     torch.cuda.synchronize()
     res["lcp_adjacent_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2312,10 +2419,21 @@ def _scan_chr1_phase(cli_main, rank, pack2, label: str, rp: str, qp: str,
         raise AssertionError(f"{label}: lcp_adjacent != lcp_plain at {bad} "
                              f"of {index.n} rows")
     res["lcp_max"] = int(plain.max())
-    del lcp, plain
+    del plain
     _log(f"[scan {label}] lcp_adjacent == lcp_plain over {index.n} rows "
-         f"(max {res['lcp_max']}); {res['lcp_adjacent_s']:.6f} s against "
-         f"{res['lcp_plain_s']:.6f} s")
+         f"(max {res['lcp_max']}, {stats['long_pairs']} long pairs, "
+         f"{stats['launches']} launches); {res['lcp_adjacent_s']:.6f} s "
+         f"against {res['lcp_plain_s']:.6f} s")
+    k = res["lcp_kernel"] = _lcp_kernel_times(index, lcp,
+                                              stats["long_pairs"])
+    del lcp
+    _log(f"[scan {label}] LCP kernel at {k['rows']} rows: {k['ms']:.6f} ms "
+         f"(pass 1 {k['first_pass_ms']:.6f} ms; "
+         f"{k['sector_share_pct']:.1f}% of the sector bound "
+         f"{k['sector_bound_ms']:.6f} ms, {k['sectors']} sectors; "
+         f"{k['bound_share_pct']:.1f}% of the byte bound "
+         f"{k['bound_ms']:.6f} ms), wrapper {k['wrapper_ms']:.6f} ms, "
+         f"plain {k['plain_ms']:.6f} ms; {smi}")
     qt = seed_mode.query_to_device(qcodes, "cuda")[1]
     m, C = int(qt.numel()), scan_mode._SCAN_CHUNK
     res["chunks_checked"] = {}
@@ -2365,15 +2483,15 @@ def scan_chr1_main(argv: list[str]) -> int:
     sys.path.insert(0, str(here))
     from slamem_tpu_torch.cli.main import main as cli_main
     from slamem_tpu_torch.io.fasta import Sequence, write_fasta
-    from slamem_tpu_torch.kernels import (buckets, extend, occ, rank,
+    from slamem_tpu_torch.kernels import (buckets, extend, lcp, occ, rank,
                                           sakeys, seedkeys, unpack2)
     from slamem_tpu_torch.utils import pack2, synth
 
     # every kernel the two calls launch, built first, so that no stage
     # below holds an nvcc run
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         for f in [pool.submit(m.load_kernel) for m in (
-                rank, unpack2, extend, seedkeys, buckets, occ, sakeys)]:
+                rank, unpack2, extend, seedkeys, buckets, occ, sakeys, lcp)]:
             f.result()
 
     smi = subprocess.run(
@@ -2461,7 +2579,7 @@ def run() -> int:
     from slamem_tpu_torch.index import serialize
     from slamem_tpu_torch.index.build import build_index
     from slamem_tpu_torch.io.fasta import Sequence, read_fasta, write_fasta
-    from slamem_tpu_torch.kernels import (buckets, extend, occ, rank,
+    from slamem_tpu_torch.kernels import (buckets, extend, lcp, occ, rank,
                                           sakeys, seedkeys, unpack2)
     from slamem_tpu_torch.utils import pack2, synth
 
@@ -2477,14 +2595,15 @@ def run() -> int:
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = {"rank and scan kernels": pool.submit(rank.load_kernel),
                   "unpack kernel": pool.submit(unpack2.load_kernel),
                   "extension kernel": pool.submit(extend.load_kernel),
                   "key kernels": pool.submit(seedkeys.load_kernel),
                   "bucket kernel": pool.submit(buckets.load_kernel),
                   "occ kernel": pool.submit(occ.load_kernel),
-                  "window-key kernel": pool.submit(sakeys.load_kernel)}
+                  "window-key kernel": pool.submit(sakeys.load_kernel),
+                  "LCP kernel": pool.submit(lcp.load_kernel)}
         built = {label: f.result() for label, f in builds.items()}
     _log(f"[build] {', '.join(f'{k} {v.path.name}' for k, v in built.items())}"
          f" in {time.perf_counter() - t0:.3f} s")
@@ -3159,6 +3278,20 @@ def run() -> int:
         "plain_ms": keys_k["plain_ms"], "bound_ms": keys_k["bound_ms"],
         "bound_by": keys_k["bound_by"],
         "library_ms": None})   # no one PyTorch call packs the windows
+    # the scan engine's LCP array at chr1's 250,000,001 rows (phase 6s);
+    # launches: 6s's CLI call (1, and 1 more where pairs are long)
+    k = chr1["6s"]["lcp_kernel"]
+    kernels.append({
+        "name": "lcp_adjacent", "route": "cuda",
+        "source": "slamem_tpu_torch/kernels/csrc/lcp.cu",
+        "replaces": "none (the XLA doubling rounds and descent of "
+                    "slamem_tpu/index/lcp.py::lcp_adjacent)",
+        "launches": chr1["6s"]["lcp_launches"],
+        "long_pairs": k["long_pairs"], "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "sector_bound_ms": k["sector_bound_ms"], "sectors": k["sectors"],
+        "library_ms": None})   # no one PyTorch call compares suffixes
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -57,7 +57,8 @@ _SCAN_CHUNK = 1 << 22
 
 def get_pyramid(index: FMIndex, stats: dict | None = None) -> LcpPyramid:
     """LCP pyramid of an index, built once per index; a build fills
-    ``stats`` as ``lcp_adjacent`` does."""
+    ``stats`` as ``lcp_adjacent`` does (``long_pairs``: the pairs its
+    second pass took, ``launches``: its kernel launches, 0 on the CPU)."""
     pyr = index.derived.get("lcp_pyramid")
     if pyr is None:
         pyr = index.derived["lcp_pyramid"] = LcpPyramid.build(
@@ -240,10 +241,10 @@ def find_scan_matches(index: FMIndex, query_text: np.ndarray, cfg: Config,
     """Scan frontend + shared pair/run backend (see seed_mode); ``mesh``
     goes on to the backend, as in the JAX package. Stages ``upload``;
     where the index has not cached them, ``scan_lcp`` (the LCP array and
-    its pyramid: ``n``, ``rounds`` and ``bytes`` of the rank arrays kept)
-    and ``scan_rows`` (the occ table of ``cfg.rank_kernel``: ``rows``,
-    ``bytes``); ``frontend`` (the scan: ``chunks``, ``launches`` of the
-    scan kernel); then the backend's."""
+    its pyramid: ``n``, and ``lcp_adjacent``'s ``long_pairs`` and
+    ``launches``) and ``scan_rows`` (the occ table of
+    ``cfg.rank_kernel``: ``rows``, ``bytes``); ``frontend`` (the scan:
+    ``chunks``, ``launches`` of the scan kernel); then the backend's."""
     L = cfg.min_length
     with engine_stages(index.device, cfg.verbose) as stage_s:
         with span("upload"):

@@ -23,7 +23,6 @@ JAX package's bit for bit (tests/test_torch_index.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
 
 import numpy as np
 import torch
@@ -64,13 +63,6 @@ class FMIndex:
         return self.text.device
 
 
-def initial_ranks(text: torch.Tensor) -> torch.Tensor:
-    """Round-0 suffix ranks: unique-per-position for specials, below ACGT."""
-    n = text.shape[0]
-    pos = torch.arange(n, dtype=torch.int32, device=text.device)
-    return torch.where(text >= CODE_N, pos, n + text.to(torch.int32))
-
-
 def _dense_ranks(is_new: torch.Tensor) -> torch.Tensor:
     """Ranks of n sorted rows from ``is_new`` (n - 1 bools: row j + 1
     starts a new rank): 0 at the first row, one more at each new rank."""
@@ -99,37 +91,6 @@ def _round_sort(rank: torch.Tensor, k: int
     key_s, order = torch.sort(key)
     del key
     return order, _dense_ranks(key_s[1:] != key_s[:-1])
-
-
-def _round_body(rank: torch.Tensor, k: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One prefix-doubling round: ranks by 2k chars from ranks by k chars
-    (``_round_sort``), back in position order by a scatter through the
-    sort permutation. Returns (new_rank, max_rank) with max_rank on the
-    device.
-    """
-    order, new_rank_sorted = _round_sort(rank, k)
-    new_rank = torch.empty_like(rank)
-    new_rank[order] = new_rank_sorted
-    return new_rank, new_rank_sorted[-1]
-
-
-def doubling_ranks(text: torch.Tensor) -> Iterator[torch.Tensor]:
-    """Round-0 ranks, then every doubling round's ranks (rank_t tells
-    2^t-char prefixes apart), until the ranks are all distinct or k >= n.
-
-    One scalar device->host read per round decides the early exit.
-    """
-    n = int(text.shape[0])
-    rank = initial_ranks(text)
-    yield rank
-    k = 1
-    while True:
-        rank, max_rank = _round_body(rank, k)
-        yield rank
-        if int(max_rank) == n - 1 or k >= n:
-            return
-        k *= 2
 
 
 def sa_keys_plain(text: torch.Tensor) -> torch.Tensor:

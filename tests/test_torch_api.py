@@ -122,6 +122,10 @@ NO_COUNTERPART = {
         "plan_blocks_on_device", "seed_last_from_disk")},
     ("index/build.py", "index_digest"): A11 + " (the adaptive store's key)",
     ("index/build.py", "register_digest"): A11 + " (the adaptive store's key)",
+    ("index/build.py", "initial_ranks"):
+        "nothing starts prefix doubling from 1-character ranks: the suffix "
+        "sort starts from 27-character window keys (sa_keys) and the LCP "
+        "array compares suffixes directly (index/lcp.py)",
     ("utils/pack2.py", "spec_bucket"): A11 + " (the side channel is exact)",
     ("utils/log.py", "V5E_HBM_GBPS"):
         "no rate is derived from a phase's bytes: bytes over a host-timed "

@@ -5,7 +5,7 @@ of the upload wire (``unpack_codes``), the seed engine's endpoint-extension
 kernel (``extend_runs``), the seed tables' key and bucket-start kernels
 (``seed_table_rows``, ``packed_key_words``, ``bucket_starts``), the index
 build's occ checkpoint and window-key kernels (``occ_checkpoints``,
-``sa_keys``), the scan,
+``sa_keys``), the scan engine's LCP kernel (``lcp_adjacent``), the scan,
 seed (sort and boundary backends) and
 virtual-slab engines on a CUDA device, and the mesh branches over a
 one-rank NCCL group, against their plain versions / CPU runs / the
@@ -663,13 +663,82 @@ def big_scan_index():
 
 
 def test_lcp_adjacent_equals_lcp_plain_on_card(big_scan_index):
+    """The LCP kernel == lcp_plain where repeats of 2,000 characters send
+    pairs to its second pass: two launches, long pairs counted."""
+    from benchmark.reference.lcp import lcp_plain
+    from slamem_tpu_torch.index.lcp import LCP_WINDOW, lcp_adjacent
+
+    index, _ = big_scan_index
+    stats = {}
+    before = lcp_adjacent.launches
+    got = lcp_adjacent(index.text, index.sa, stats)
+    want = lcp_plain(index.text, index.sa)
+    assert torch.equal(got, want) and int(want.max()) >= 2_000
+    assert stats["launches"] == 2 == lcp_adjacent.launches - before
+    assert stats["long_pairs"] == int((want >= LCP_WINDOW).sum()) > 0
+
+
+def _lcp_case(t: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(text, sa) on ``device`` of t with its terminator, the suffix array
+    sorted on the CPU."""
+    text = torch.from_numpy(np.concatenate(
+        [t, np.array([CODE_SEP], np.uint8)]))
+    return text.to(device), index_build.suffix_array(text).to(device)
+
+
+def _lcp_checked(text: torch.Tensor, sa: torch.Tensor) -> dict:
+    """lcp_adjacent on the card == lcp_plain and == the CPU's plain path,
+    its stats equal too; returns the card call's stats."""
     from benchmark.reference.lcp import lcp_plain
     from slamem_tpu_torch.index.lcp import lcp_adjacent
 
-    index, _ = big_scan_index
-    got = lcp_adjacent(index.text, index.sa)
-    want = lcp_plain(index.text, index.sa)
-    assert torch.equal(got, want) and int(want.max()) >= 2_000
+    stats, cpu_stats = {}, {}
+    before = lcp_adjacent.launches
+    got = lcp_adjacent(text, sa, stats)
+    torch.cuda.synchronize()
+    assert lcp_adjacent.launches - before == stats["launches"]
+    want = lcp_adjacent(text.cpu(), sa.cpu(), cpu_stats)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert torch.equal(want, lcp_plain(text.cpu(), sa.cpu()))
+    assert stats["long_pairs"] == cpu_stats["long_pairs"]
+    return stats
+
+
+def test_lcp_adjacent_one_launch_without_long_pairs(cuda):
+    """A repeat-free random text: no pair reaches 32 characters, so the
+    kernel launches once and reads no list."""
+    text, sa = _lcp_case(random_genome(1 << 20, seed=170), cuda)
+    assert _lcp_checked(text, sa) == {"long_pairs": 0, "launches": 1}
+
+
+@pytest.mark.parametrize("r", range(16))
+def test_lcp_adjacent_at_byte_offsets(cuda, r):
+    """The text as a view at byte offset r of a larger buffer: the chunk
+    path's funnel shifts, and bytewise loads near both ends, in both
+    passes (repeats of 40 and 700, N runs, separators)."""
+    t = with_n_runs(with_repeats(random_genome(20_000, seed=171 + r), 8,
+                                 40, seed=172), 4, 30, seed=173)
+    t = with_repeats(t, 3, 700, seed=174 + r)
+    t[[5_000, 12_000]] = CODE_SEP
+    text, sa = _lcp_case(t, cuda)
+    stats = _lcp_checked(_offset_view(text, r), sa)
+    assert stats["launches"] == 2 and stats["long_pairs"] > 0
+
+
+@pytest.mark.parametrize("n", [*range(1, 65), (1 << 20) + 3])
+def test_lcp_adjacent_lengths(cuda, n):
+    """Rows 1..64 and 2^20 + 3: random codes with specials, and all A
+    (every pair alike up to the terminator: long pairs from 34 rows),
+    against the plain versions; fewer than 2 rows launch nothing."""
+    rng = np.random.default_rng(175 + n)
+    mixed = rng.integers(0, 4, size=n - 1).astype(np.uint8)
+    mixed[rng.random(n - 1) < 1 / 16] = 4
+    texts = [mixed, np.zeros(n - 1, np.uint8)] if n < 1 << 20 else [
+        with_repeats(random_genome(n - 1, seed=176), 20, 1_500, seed=177)]
+    for t in texts:
+        stats = _lcp_checked(*_lcp_case(t, cuda))
+        assert stats["launches"] == (0 if n == 1 else
+                                     1 + (stats["long_pairs"] > 0))
 
 
 @pytest.mark.parametrize("L", [20, 50])

@@ -8,10 +8,12 @@ integer and must be equal bit for bit (the suffix array is unique under the
 order contract, so SA, BWT, occ checkpoints, C[] and LCP are determined).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from benchmark.reference.lcp import lcp_plain
 from slamem_tpu.index.build import build_index as jax_build
 from slamem_tpu.index.lcp import lcp_adjacent as jax_lcp
 from slamem_tpu.index.serialize import load_index as jax_load
@@ -20,9 +22,11 @@ from slamem_tpu.io import FastaSet
 from slamem_tpu.utils import synth as jax_synth
 
 from slamem_tpu_torch.index import build
+from slamem_tpu_torch.index import lcp as lcp_module
 from slamem_tpu_torch.index.build import (SA_KEY_CHARS, build_index,
                                           sa_keys_plain)
-from slamem_tpu_torch.index.lcp import lcp_adjacent
+from slamem_tpu_torch.index.lcp import (LCP_WINDOW, lcp_adjacent,
+                                        lcp_adjacent_plain)
 from slamem_tpu_torch.index.serialize import (index_from_numpy, load_index,
                                               save_index)
 from slamem_tpu_torch.utils import synth
@@ -340,3 +344,208 @@ def test_sa_keys_plain_by_definition():
     assert ((got % 5 == 0) == np.array(
         [(t[i:i + SA_KEY_CHARS] >= 4).any() or i + SA_KEY_CHARS > t.size
          for i in range(t.size)])).all()
+
+
+# ---------------------------------------------------------------------------
+# The LCP array by direct comparison (lcp_adjacent's plain path)
+# ---------------------------------------------------------------------------
+
+
+def _terminated(t):
+    return np.concatenate([t, np.array([5], np.uint8)])
+
+
+def _tail_repeat(length, seed):
+    """N runs, two separators and a copy of a ``length``-character run
+    that ends at the text's last character."""
+    t = jax_synth.random_genome(2 * length + 900, seed=seed)
+    t[-length:] = t[100:100 + length]
+    t[length + 150:length + 175] = 4
+    t[length + 400:length + 420] = 4
+    t[[length + 300, length + 600]] = 5
+    return t
+
+
+def _contract_sa(t):
+    """The suffix array of t under the order contract, by sorting: a
+    special at p sorts as (0, p), below every base; a suffix that prefixes
+    another sorts first."""
+    def key(i):
+        out = []
+        for p in range(i, t.size):
+            if t[p] >= 4:
+                out.append((0, p))
+                break
+            out.append((1, int(t[p])))
+        return out
+    return np.array(sorted(range(t.size), key=key), np.int32)
+
+
+LCP_TEXTS = {
+    **{f"n{n}": (lambda n=n: _terminated(
+        jax_synth.random_genome(n - 1, seed=200 + n)))
+       for n in (1, 2, 17, 33, 100, 1001)},
+    "random": lambda: _terminated(jax_synth.random_genome(3000, seed=210)),
+    "repeats40": lambda: _terminated(jax_synth.with_repeats(
+        jax_synth.random_genome(3000, seed=211), 6, 40, seed=212)),
+    "repeats600": lambda: _terminated(jax_synth.with_repeats(
+        jax_synth.random_genome(4000, seed=213), 4, 600, seed=214)),
+    "specials_tail600": lambda: _terminated(_tail_repeat(600, 215)),
+    "all_a": lambda: _terminated(np.zeros(1500, np.uint8)),
+    # no terminator: the copy's prefix stops at the text's end
+    "unterminated_tail40": lambda: _tail_repeat(40, 216),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LCP_TEXTS))
+def test_lcp_adjacent_equals_jax_and_lcp_plain(name):
+    """lcp_adjacent (its plain path on the CPU) == the JAX package's rank
+    descent == the benchmark's lcp_plain, on texts of n 1, 2, 17 and other
+    lengths off 16, random, with repeats past the first window (40) and
+    past a warp's step (600), N runs and separators, a repeat that runs
+    into the terminator or, unterminated, into the text's end; ``stats``
+    counts the pairs alike on their first LCP_WINDOW characters."""
+    t = LCP_TEXTS[name]()
+    text = torch.from_numpy(t)
+    sa = (build.suffix_array(text) if t[-1] == 5 else
+          torch.from_numpy(_contract_sa(t)))
+    stats = {}
+    got = lcp_adjacent(text, sa, stats)
+    want = np.asarray(jax_lcp(jnp.asarray(t), jnp.asarray(sa.numpy())))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, lcp_plain(text, sa))
+    assert stats == {"long_pairs": int((got >= LCP_WINDOW).sum()),
+                     "launches": 0}
+    longest = {"repeats40": 40, "repeats600": 600, "specials_tail600": 600,
+               "all_a": 1499, "unterminated_tail40": 40}.get(name)
+    if longest is not None:
+        assert int(got.max()) >= longest
+
+
+def test_lcp_adjacent_plain_blocks_and_checks(monkeypatch):
+    """The plain version gives the same array whatever its block of pairs;
+    lcp_adjacent refuses a text or suffix array it does not take."""
+    t = LCP_TEXTS["repeats600"]()
+    text = torch.from_numpy(t)
+    sa = build.suffix_array(text)
+    want = lcp_adjacent_plain(text, sa)
+    monkeypatch.setattr(lcp_module, "PLAIN_BLOCK", 777)
+    assert torch.equal(lcp_adjacent_plain(text, sa), want)
+    with pytest.raises(ValueError):
+        lcp_adjacent(text.to(torch.int16), sa)
+    with pytest.raises(ValueError):
+        lcp_adjacent(text, sa.to(torch.int64))
+    with pytest.raises(ValueError):
+        lcp_adjacent(text[::2], sa[:t.size // 2])
+
+
+def _load_model(text, p, words):
+    """csrc/lcp.cu's load_chars<words> at positions p in numpy: the chunk
+    path where the words // 4 + 1 aligned 16-byte chunks from lo = p -
+    (address of text[p]) % 16 lie inside the text (the last chunk read only
+    where p is off a 16-byte boundary), a select of whole words and
+    __funnelshift_r; bytewise elsewhere, N past the text. Returns the
+    (len(p), words) words and how many positions took the chunk path."""
+    if p.size == 0:
+        return np.zeros((0, words), np.uint32), 0
+    n = text.size
+    k = words // 4 + 1
+    off = (text.ctypes.data + p) & 15
+    lo = p - off
+    fast = (lo >= 0) & (lo + 16 * k <= n)
+    pos = np.where(fast, lo, 0)[:, None] + np.arange(16 * k)
+    touched = (np.arange(16 * k) // 16 + 1 < k)[None, :] | (off > 0)[:, None]
+    assert (pos[fast[:, None] & touched] < n).all()    # no read past n
+    c = _words(np.where(touched, text[np.clip(pos, 0, max(n - 1, 0))], 0))
+    s = np.take_along_axis(c, (off >> 2)[:, None] + np.arange(words + 1),
+                           axis=1)
+    sh = (8 * (off & 3)).astype(np.uint64)[:, None]
+    pair = s[:, :words].astype(np.uint64) | (s[:, 1:].astype(np.uint64)
+                                             << 32)
+    x_fast = ((pair >> sh) & 0xFFFFFFFF).astype(np.uint32)
+    bpos = p[:, None] + np.arange(4 * words)
+    x_slow = _words(np.where(bpos < n, text[np.clip(bpos, 0, max(n - 1, 0))],
+                             4))
+    return np.where(fast[:, None], x_fast, x_slow), int(fast.sum())
+
+
+def _prefix_model(xa, xb):
+    """common_prefix: per byte, __vcmpeq4 and not __vcmpgeu4(a, 4); the
+    first bad byte (__ffs of the mask), 4 W where none."""
+    sh = np.array([0, 8, 16, 24], np.uint32)
+    ba = ((xa[..., None] >> sh) & 0xFF).reshape(xa.shape[0], -1)
+    bb = ((xb[..., None] >> sh) & 0xFF).reshape(xb.shape[0], -1)
+    bad = (ba != bb) | (ba >= 4)
+    return np.where(bad.any(1), bad.argmax(1), bad.shape[1])
+
+
+def _lcp_kernel_model(text, sa):
+    """csrc/lcp.cu step for step in numpy. Pass 1, a thread a row: the
+    first 32 characters of the row's own suffix; the predecessor's words
+    from the lane below (row j - 1), lane 0 loading its own; rows alike on
+    all 32 go to the list. Pass 2, a warp a listed row: from character 32,
+    each lane 16 characters of both suffixes a step, the first lane that
+    saw a bad byte ends it, else 512 further. Returns (lcp, long rows,
+    chunk-path loads of pass 1, of pass 2)."""
+    n = sa.size
+    if n <= 1:
+        return np.zeros(n, np.int32), 0, 0, 0
+    j = np.arange(n)
+    xb, fast1 = _load_model(text, sa.astype(np.int64), 8)
+    xa = np.roll(xb, 1, axis=0)                        # __shfl_up_sync
+    edge = (j % 32 == 0) & (j > 0)
+    xa[edge], nf = _load_model(text, sa[j[edge] - 1].astype(np.int64), 8)
+    h = np.where(j > 0, _prefix_model(xa, xb), 0)
+    longs = j[h == 32]
+    lanes = np.arange(32)
+    fast2 = 0
+    for row in longs:
+        a, b, hh = int(sa[row - 1]), int(sa[row]), 32
+        while True:
+            x2a, fa = _load_model(text, a + hh + 16 * lanes, 4)
+            x2b, fb = _load_model(text, b + hh + 16 * lanes, 4)
+            fast2 += fa + fb
+            d = _prefix_model(x2a, x2b)
+            if (d < 16).any():                         # __ballot_sync
+                first = int((d < 16).argmax())
+                hh += 16 * first + int(d[first])
+                break
+            hh += 512
+        h[row] = hh
+    return h.astype(np.int32), longs.size, fast1 + nf, fast2
+
+
+def _lcp_model_texts(seed):
+    """Rows 1..70 (random with specials at one position in eight, and all
+    A), repeats of 40 and 700 with N runs and separators."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in range(1, 71):
+        t = rng.integers(0, 4, size=n - 1).astype(np.uint8)
+        t[rng.random(n - 1) < 1 / 8] = rng.choice([4, 5])
+        out += [_terminated(t), _terminated(np.zeros(n - 1, np.uint8))]
+    t = jax_synth.with_repeats(jax_synth.random_genome(3000, seed=seed), 4,
+                               40, seed=seed + 1)
+    t = jax_synth.with_n_runs(jax_synth.with_repeats(t, 2, 700,
+                                                     seed=seed + 2),
+                              2, 20, seed=seed + 3)
+    t[[900, 2100]] = 5
+    out.append(_terminated(t))
+    return out
+
+
+@pytest.mark.parametrize("r", range(16))
+def test_lcp_kernel_model_equal_plain(r):
+    """At base-address residue r: the kernel's model == lcp_adjacent_plain
+    (and its long-pair count) on every text, and both passes take the
+    chunk path somewhere and the bytewise path near the ends."""
+    fast1 = fast2 = 0
+    for t in _lcp_model_texts(300 + r):
+        text = torch.from_numpy(t)
+        sa = build.suffix_array(text)
+        stats = {}
+        want = lcp_adjacent_plain(text, sa, stats).numpy()
+        got, n_long, f1, f2 = _lcp_kernel_model(_at_offset(t, r), sa.numpy())
+        fast1, fast2 = fast1 + f1, fast2 + f2
+        assert np.array_equal(got, want) and n_long == stats["long_pairs"]
+    assert fast1 > 0 and fast2 > 0

@@ -11,6 +11,7 @@ end, the configuration ``chr1-pair-scan`` cut to a CPU size lists, through
 benchmark's reference works out.
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -23,10 +24,12 @@ from benchmark.inputs.build import make_inputs
 from benchmark.reference.lcp import intervals_plain, lcp_plain
 from benchmark.reference.listing import expected_listing
 from slamem_tpu_torch.cli.main import main
+from slamem_tpu_torch.config import Config
 from slamem_tpu_torch.engine import scan_mode
 from slamem_tpu_torch.index.build import build_index
-from slamem_tpu_torch.index.lcp import lcp_adjacent
+from slamem_tpu_torch.index.lcp import LCP_WINDOW, lcp_adjacent
 from slamem_tpu_torch.io.fasta import FastaSet
+from slamem_tpu_torch.utils.log import PhaseLog
 from slamem_tpu_torch.utils.synth import (mutate, random_genome,
                                           with_n_runs, with_repeats)
 
@@ -71,6 +74,23 @@ def test_lcp_adjacent_equals_lcp_plain(case):
     assert torch.equal(got, want)
     # the planted repeat is in what is compared: an LCP past any L below
     assert int(want.max()) > 50
+
+
+def test_scan_lcp_span_carries_long_pairs_and_launches(case):
+    """A scan call on an index with no cached pyramid records ``scan_lcp``
+    with the SA rows, the pairs alike on their first LCP_WINDOW characters
+    (the planted repeat's among them) and the call's kernel launches (0:
+    the CPU takes the plain version)."""
+    _, index, qry = case
+    fresh = dataclasses.replace(index, derived={})
+    with PhaseLog(enabled=False).activate() as log:
+        scan_mode.find_scan_matches(fresh, qry,
+                                    Config(min_length=20, engine="scan"))
+    rec, = [r for r in log.records if r["phase"] == "scan_lcp"]
+    want = lcp_plain(index.text, index.sa)
+    assert rec["n"] == index.n and rec["launches"] == 0
+    assert rec["long_pairs"] == int((want >= LCP_WINDOW).sum()) > 0
+    assert "rounds" not in rec and "bytes" not in rec
 
 
 @pytest.mark.parametrize("L", [12, 20, 50])
